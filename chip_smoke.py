@@ -15,10 +15,12 @@ package), in phases; any failure exits non-zero before the final line.
               step's forward and backward at batch 128), bf16 and fp32, with
               and without the time bias, plus a large-mean GroupNorm input
               and a ragged attention length (N = 100) at head dims 64, 32,
-              40 and 128; every bf16 flash forward and dK/dV call must reach
-              the tensor-core kernel and every fp32 one the FMA kernel; the
-              plain backward versions once against float64 autograd of the
-              plain forwards
+              40 and 128; every bf16 flash forward, dQ and dK/dV call must
+              reach the tensor-core kernel and every fp32 one the FMA
+              kernel; the GN backward at C = 96, a large mean, odd C and
+              unaligned operands too, on the route its plan names, and bit-
+              equal on a second identical call; the plain backward versions
+              once against float64 autograd of the plain forwards
 4. unet       celeba64_attn at full width (31,312,131 params, seeded random
               weights): one forward on the kernels and one on the plain
               versions, on the card
@@ -35,14 +37,17 @@ package), in phases; any failure exits non-zero before the final line.
               and the bf16 step on the tensor-core ones; (b) train_one_epoch
               for 20 steps with dropout on, launches exactly 45/45/5/5/5 per
               step (22 of the GN backward launches with the time-bias
-              gradient; the flash forward's and dK/dV's 5 all on the tensor
-              cores, none on FMA); (c) the
+              gradient, 13 keeping their chunk in shared memory and 32
+              re-reading it, as the plan says; the flash forward's, dQ's and
+              dK/dV's 5 all on the tensor cores, none on FMA); (c) the
               step's wall and device time, idle share, top kernels and
               peak memory
 7. times      each kernel's device time per train step and per serving
               U-Net forward beside its bound, its plain version and the
               PyTorch yardstick (timed here only), request latency and
-              forwards per second
+              forwards per second; the GN backward at its largest train-
+              step shape on every cluster size and route beside the plan's
+              pick
 
 Before the final line it prints one ``{"kernels": [...]}`` JSON line and the
 ``nvidia-smi`` name/power-limit line; the final line is
@@ -74,6 +79,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 GN_LAUNCHES_PER_FORWARD = 45
 FLASH_LAUNCHES_PER_FORWARD = 5
 GN_DTB_LAUNCHES_PER_STEP = 22  # the norm2 of every ResBlock carries the time bias
+# GN backward launches per bf16 step by route, from _gn_bwd_plan over the
+# step's 45 shapes: the 13 at 8x8x256 keep their chunk in shared memory
+GN_BWD_SMEM_PER_STEP = 13
+GN_BWD_REREAD_PER_STEP = GN_LAUNCHES_PER_FORWARD - GN_BWD_SMEM_PER_STEP
 BATCH = 16
 TRAIN_BATCH = 128
 TRAIN_STEPS = 20
@@ -84,12 +93,16 @@ KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_attn_fwd", "flash_attn_bwd_dq",
 LAUNCHES_PER_STEP = {"gn_silu_fwd": GN_LAUNCHES_PER_FORWARD,
                      "gn_silu_bwd": GN_LAUNCHES_PER_FORWARD,
                      "gn_silu_bwd_dtb": GN_DTB_LAUNCHES_PER_STEP,
+                     "gn_silu_bwd_smem": GN_BWD_SMEM_PER_STEP,
+                     "gn_silu_bwd_reread": GN_BWD_REREAD_PER_STEP,
                      "flash_attn_fwd": FLASH_LAUNCHES_PER_FORWARD,
                      "flash_attn_bwd_dq": FLASH_LAUNCHES_PER_FORWARD,
                      "flash_attn_bwd_dkv": FLASH_LAUNCHES_PER_FORWARD,
                      # bf16: the tensor-core variants only
                      "flash_attn_fwd_tc": FLASH_LAUNCHES_PER_FORWARD,
                      "flash_attn_fwd_fma": 0,
+                     "flash_attn_bwd_dq_tc": FLASH_LAUNCHES_PER_FORWARD,
+                     "flash_attn_bwd_dq_fma": 0,
                      "flash_attn_bwd_dkv_tc": FLASH_LAUNCHES_PER_FORWARD,
                      "flash_attn_bwd_dkv_fma": 0}
 
@@ -270,8 +283,10 @@ def reset_counts():
     """Set every launch and layout-copy count to 0."""
     fn, fa = _kernel_modules()
     fn.launches = fn.bwd_launches = fn.bwd_dtb_launches = fn.bwd_layout_copies = 0
+    fn.bwd_smem_launches = fn.bwd_reread_launches = 0
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = fa.bwd_layout_copies = 0
     fa.fwd_tc_launches = fa.fwd_fma_launches = 0
+    fa.bwd_dq_tc_launches = fa.bwd_dq_fma_launches = 0
     fa.bwd_dkv_tc_launches = fa.bwd_dkv_fma_launches = 0
 
 
@@ -279,10 +294,14 @@ def read_counts():
     fn, fa = _kernel_modules()
     return {"gn_silu_fwd": fn.launches, "gn_silu_bwd": fn.bwd_launches,
             "gn_silu_bwd_dtb": fn.bwd_dtb_launches,
+            "gn_silu_bwd_smem": fn.bwd_smem_launches,
+            "gn_silu_bwd_reread": fn.bwd_reread_launches,
             "flash_attn_fwd": fa.launches, "flash_attn_bwd_dq": fa.bwd_dq_launches,
             "flash_attn_bwd_dkv": fa.bwd_dkv_launches,
             "flash_attn_fwd_tc": fa.fwd_tc_launches,
             "flash_attn_fwd_fma": fa.fwd_fma_launches,
+            "flash_attn_bwd_dq_tc": fa.bwd_dq_tc_launches,
+            "flash_attn_bwd_dq_fma": fa.bwd_dq_fma_launches,
             "flash_attn_bwd_dkv_tc": fa.bwd_dkv_tc_launches,
             "flash_attn_bwd_dkv_fma": fa.bwd_dkv_fma_launches,
             "gn_dy_layout_copies": fn.bwd_layout_copies,
@@ -364,8 +383,20 @@ def train_path_shapes(model):
             "flash_attn_bwd_dkv": FLASH_LAUNCHES_PER_FORWARD}
     if kinds != want:
         raise AssertionError(f"a train step made the calls {kinds}, expected {want}")
-    log(f"[kernels] a train step at batch {TRAIN_BATCH} calls {kinds}")
+    smem = sum(_gn_plan(c, torch.bfloat16)[2] for c in calls if c[0] == "gn_bwd")
+    if (smem, kinds["gn_bwd"] - smem) != (GN_BWD_SMEM_PER_STEP, GN_BWD_REREAD_PER_STEP):
+        raise AssertionError(f"the GN backward plan puts {smem} of a step's launches in "
+                             f"shared memory, expected {GN_BWD_SMEM_PER_STEP}")
+    log(f"[kernels] a train step at batch {TRAIN_BATCH} calls {kinds}; GN backward "
+        f"routes by the plan: {smem} in shared memory, {kinds['gn_bwd'] - smem} re-read")
     return calls
+
+
+def _gn_plan(call, dtype):
+    """The GN backward plan (cluster, chunk, in_smem) of a recorded call."""
+    fn = _kernel_modules()[0]
+    B, H, W, C = call[1]
+    return fn._gn_bwd_plan(B, H * W, C, call[2], dtype)
 
 
 def gn_inputs(shape, groups, with_tb, dtype, gen, mean=0.0):
@@ -379,14 +410,14 @@ def gn_inputs(shape, groups, with_tb, dtype, gen, mean=0.0):
     return x, scale, bias, groups, 1e-6, tb
 
 
-def gn_bwd_inputs(shape, groups, with_tb, dtype, gen):
+def gn_bwd_inputs(shape, groups, with_tb, dtype, gen, mean=0.0):
     """(x, scale, bias, mean, rstd, dy, groups, time_bias): the statistics
     from the plain forward, dy standard normal in x's dtype."""
     import torch
 
     from ddpm_diffusion_model_tpu_torch.ops import fused_norm as fn
 
-    x, s, b, g, eps, tb = gn_inputs(shape, groups, with_tb, dtype, gen)
+    x, s, b, g, eps, tb = gn_inputs(shape, groups, with_tb, dtype, gen, mean)
     _, mean, rstd = fn.gn_silu_reference(x, s, b, g, eps, tb)
     dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     return x, s, b, mean, rstd, dy, g, tb
@@ -453,6 +484,42 @@ def check_scaled(name, got, want, tol) -> float:
         raise AssertionError(f"{name}: max |err| {err:.3e} beyond {tol} x "
                              f"{scale:.3e} (or non-finite output)")
     return err
+
+
+#: GN backward cases beyond the train step's shapes: (shape, groups, case)
+GN_BWD_EXTRA = [((BATCH, 16, 16, 96), 32, ""), ((BATCH, 32, 32, 256), 32, "mean1000"),
+                ((BATCH, 16, 16, 64), 32, "unaligned"), ((4, 3, 7, 30), 30, "")]
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is not 16-byte aligned."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def gn_bwd_checked(args, dtype):
+    """``gn_silu_bwd(*args)``, raising unless it launched once on the route
+    its plan names and a second identical call gives the same bits (the
+    kernel has no atomics)."""
+    import torch
+
+    fn = _kernel_modules()[0]
+    x = args[0]
+    plan = _gn_plan(("gn_bwd", tuple(x.shape), args[6]), dtype)
+    before = (fn.bwd_smem_launches, fn.bwd_reread_launches)
+    got = fn.gn_silu_bwd(*args)
+    routes = (fn.bwd_smem_launches - before[0], fn.bwd_reread_launches - before[1])
+    if routes != (int(plan[2]), int(not plan[2])):
+        raise AssertionError(f"gn_silu_bwd {tuple(x.shape)}: (smem, re-read) launches "
+                             f"{routes}, the plan {plan}")
+    again = fn.gn_silu_bwd(*args)
+    if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"gn_silu_bwd {tuple(x.shape)}: two identical calls differ")
+    return got
 
 
 def check_plain_backwards_float64():
@@ -527,29 +594,43 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
     log(f"[kernels] gn_silu_fwd large-mean (mean 1000, std 2) fp32 vs float64: "
         f"max|err| {e:.2e}")
 
-    # the GN backward at every train-step shape, with and without dtb
+    # the GN backward at every train-step shape, with and without dtb, then
+    # C = 96, a large mean (against float64 from the same statistics),
+    # unaligned operands and odd C (element copies)
     shapes = sorted({(c[1], c[2]) for c in train_calls if c[0] == "gn_bwd"},
                     key=lambda s: (s[0][3], s[0][1]))
-    for shape, groups in shapes:
+    cases = [(shape, groups, "") for shape, groups in shapes] + GN_BWD_EXTRA
+    for shape, groups, case in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             for with_tb in (False, True):
-                args = gn_bwd_inputs(shape, groups, with_tb, dtype, gen)
-                got = fn.gn_silu_bwd(*args)
-                want = fn.gn_silu_bwd_reference(*args)
+                args = gn_bwd_inputs(shape, groups, with_tb, dtype, gen,
+                                     1000.0 if case == "mean1000" else 0.0)
+                if case == "unaligned":
+                    args = (_unaligned(args[0]),) + args[1:5] + (_unaligned(args[5]),) \
+                        + args[6:]
+                got = gn_bwd_checked(args, dtype)
+                if case == "mean1000":
+                    x, s_, b_, mu, rs, dy, g, tb = args
+                    want = fn.gn_silu_bwd_reference(x.double(), s_.double(), b_.double(),
+                                                    mu, rs, dy.double(), g,
+                                                    None if tb is None else tb.double())
+                else:
+                    want = fn.gn_silu_bwd_reference(*args)
                 torch.cuda.synchronize()
                 if (got[3] is None) != (not with_tb) or got[0].dtype != dtype:
                     raise AssertionError(f"gn_silu_bwd {shape} {dn} tb={with_tb}: "
                                          "wrong outputs")
-                errs = [check_scaled(f"gn_silu_bwd {shape} {dn} tb={with_tb} {nm}",
+                errs = [check_scaled(f"gn_silu_bwd {shape} {case} {dn} tb={with_tb} {nm}",
                                      a, w, BWD_TOL[dn if nm == "dx" else "float32"])
                         for nm, a, w in zip(("dx", "dgamma", "dbeta", "dtb"), got, want)
                         if w is not None]
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and not case:
                     worst["gn_silu_bwd"] = max(worst["gn_silu_bwd"], max(errs))
-                log(f"[kernels] gn_silu_bwd {shape} G={groups} {dn} tb={with_tb}: "
+                log(f"[kernels] gn_silu_bwd {shape} G={groups} {case or 'main'} {dn} "
+                    f"tb={with_tb} plan {_gn_plan(('gn_bwd', shape, groups), dtype)}: "
                     f"max|err| (dx, dgamma, dbeta[, dtb]) "
-                    f"{', '.join(f'{v:.2e}' for v in errs)}")
+                    f"{', '.join(f'{v:.2e}' for v in errs)}; a second call bit-equal")
 
     fl_fwd = [c for c in fl_calls + train_calls if c[0] == "flash_attn_fwd"]
     # the ragged length at the serving batch (64-row blocks) and, for d <= 64,
@@ -578,7 +659,8 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             args = flash_bwd_inputs(shape, dtype, gen)
-            dq = fa.flash_attn_bwd_dq(*args)
+            with variant_used("bwd_dq", dtype):
+                dq = fa.flash_attn_bwd_dq(*args)
             with variant_used("bwd_dkv", dtype):
                 dk, dv = fa.flash_attn_bwd_dkv(*args)
             dq0 = fa.flash_attn_bwd_dq_reference(*args)
@@ -894,6 +976,35 @@ def _call_row(call, gen):
                           *flash_dkv_bytes_flops(shape, 2))
 
 
+#: the GN backward shape that takes most of a step's time, and the plans
+#: timed against the one _gn_bwd_plan picks: (cluster, in_smem)
+GN_ROUTE_SHAPE = (TRAIN_BATCH, 64, 64, 128)
+GN_ROUTES = [(1, False), (2, False), (4, False), (8, False), (16, False), (16, True)]
+
+
+def gn_bwd_routes():
+    """Device ms of the GN backward at GN_ROUTE_SHAPE (bf16, with dtb) on
+    each plan of GN_ROUTES, beside the plan's pick."""
+    import torch
+
+    fn = _kernel_modules()[0]
+    B, H, W, C = GN_ROUTE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, s, b, mean, rstd, dy, g, tb = gn_bwd_inputs(GN_ROUTE_SHAPE, 32, True, torch.bfloat16,
+                                                   gen)
+    out = {}
+    for cluster, in_smem in GN_ROUTES:
+        plan = (cluster, -(-H * W // cluster), in_smem)
+        out[f"{cluster}{'s' if in_smem else 'r'}"] = device_ms(
+            lambda: fn._gn_bwd_launch(x, s, b, mean, rstd, dy, g, tb, True, plan))[0]
+    pick = fn._gn_bwd_plan(B, H * W, C, g, torch.bfloat16)
+    log(f"[times] gn_silu_bwd {GN_ROUTE_SHAPE} bf16 by plan (cluster, s = chunk in "
+        f"shared memory, r = re-read), device ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+        + f"; the plan picks {pick[0]}{'s' if pick[2] else 'r'}")
+    return out
+
+
 def kernel_totals(calls, what):
     """Each kernel's times summed over the recorded calls (each distinct
     call measured once), logged per call shape and in total."""
@@ -1030,18 +1141,18 @@ def phase_train_parity(preset, base_sd, images):
     for (dn, path), r in runs.items():
         c = r["counts"]
         n = 2 * FLASH_LAUNCHES_PER_FORWARD if path == "kernels" else 0
-        want = {"flash_attn_fwd": n, "flash_attn_bwd_dkv": n,
-                "flash_attn_fwd_tc": n if dn == "bfloat16" else 0,
-                "flash_attn_bwd_dkv_tc": n if dn == "bfloat16" else 0,
-                "flash_attn_fwd_fma": n if dn == "float32" else 0,
-                "flash_attn_bwd_dkv_fma": n if dn == "float32" else 0}
+        want = {"flash_attn_fwd": n, "flash_attn_bwd_dq": n, "flash_attn_bwd_dkv": n}
+        for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            want[f"{k}_tc"] = n if dn == "bfloat16" else 0
+            want[f"{k}_fma"] = n if dn == "float32" else 0
         got = {k: c[k] for k in want}
         if got != want:
             raise AssertionError(f"{dn} train step on the {path}: flash launches {got}, "
                                  f"expected {want}")
     log("[train] flash launches of the two parity steps on the kernels, (tensor-core, "
         "FMA): " + "; ".join(
-            f"{dn} forward ({c['flash_attn_fwd_tc']}, {c['flash_attn_fwd_fma']}), dK/dV "
+            f"{dn} forward ({c['flash_attn_fwd_tc']}, {c['flash_attn_fwd_fma']}), dQ "
+            f"({c['flash_attn_bwd_dq_tc']}, {c['flash_attn_bwd_dq_fma']}), dK/dV "
             f"({c['flash_attn_bwd_dkv_tc']}, {c['flash_attn_bwd_dkv_fma']})"
             for dn in ("float32", "bfloat16") for c in [runs[(dn, "kernels")]["counts"]]))
     for r in runs.values():
@@ -1168,6 +1279,7 @@ def main() -> int:
     train = phase_train_epoch(preset, model, images)
     tot, fwd = phase_times(model, gn_calls, fl_calls)
     ttot = kernel_totals(train_calls, f"train step (batch {TRAIN_BATCH})")
+    routes = gn_bwd_routes()
 
     kernels = []
     for k in KERNELS:
@@ -1191,6 +1303,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "train_step_b128_bf16": train,
                     "train_parity": parity, "unet_forward_b16_bf16": fwd,
                     "latency_s_n16_steps50": serving["latency_s_n16_steps50"],
+                    "gn_bwd_routes_ms": routes,
                     "profiler_retraces": TRACE_RETRIES, "card": smi}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

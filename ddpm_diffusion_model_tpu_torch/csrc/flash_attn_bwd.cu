@@ -18,10 +18,11 @@
 // bytes.  dQ must read Q, K, V, dO and write dQ (5 * BH*N*d * itemsize),
 // dK/dV read the same four and write two (6 *); their 6 and 8 * BH*N^2*d
 // flops are ~77 and ~85 flops/byte at N = 256 in bf16, under the ~295
-// where an H100's tensor cores become the limit.  dQ, and dK/dV on fp32
-// operands, compute with fp32 FMA (TF32 would miss the fp32 contract), so
-// the FMA pipe and shared-memory loads are their practical limit; dK/dV on
-// bf16 operands runs on the tensor cores (flash_bwd_dkv_tc_kernel, below).
+// where an H100's tensor cores become the limit.  On fp32 operands both
+// compute with fp32 FMA (TF32 would miss the fp32 contract), so the FMA
+// pipe and shared-memory loads are their practical limit; on bf16 operands
+// both run on the tensor cores (flash_bwd_dq_tc_kernel,
+// flash_bwd_dkv_tc_kernel, below).
 //
 // Design.  The TPU kernels walk the streamed operand along a sequential
 // grid axis and keep the accumulator in VMEM scratch; Hopper has no
@@ -35,7 +36,7 @@
 // tail (N not a multiple of the tile) is masked: P = 0 for keys or queries
 // past N, rows past N are loaded as zeros and not stored.
 //
-// FMA kernels (dQ; dK/dV on fp32).  8 warps x 8 rows each.  In the score
+// FMA kernels (fp32 operands).  8 warps x 8 rows each.  In the score
 // phase a lane owns the other operand's rows lane and lane+32; in the
 // accumulate phase output columns lane + 32*j.  Operands a lane reads by
 // row in the score phase are staged as fp32 with rows padded by one float
@@ -63,6 +64,22 @@
 // Shared memory 94 KB at d = 64; 247 registers, so 2 blocks per SM.  Grid
 // (ceil(N/64), BH): 2048 blocks at (512, 256, 64) and 512 at (512, 64, 64),
 // the train step's shapes.
+//
+// dQ on bf16, flash_bwd_dq_tc_kernel: the same machinery with queries as
+// the rows, 4 warps x 16 queries.  S = Q K^T and dP = dO V^T come out in
+// the accumulator layout of the warp that owns the queries (K and V as B
+// operands by ldmatrix on their rows); dS = P * (dP - delta) is formed in
+// fp32, rounded to bf16 where it stands, which is the A-fragment layout of
+// dQ += dS K, and K is that product's B operand by the transposing
+// ldmatrix on the same rows.  Q and dO are copied once and their A
+// fragments stay in the registers for d <= 64 (at d = 128 they are re-read
+// and the key tile is 32); each lane keeps the LSE and delta of its two
+// rows in registers.  Tiles of 64 keys (K and V) stream through a 3-stage
+// cp.async ring (two tiles in flight), one stage fewer than dK/dV's: 74 KB
+// of shared memory at d = 64, so 3 blocks share an SM where 4 stages fit
+// 2.  dQ * scale is staged as bf16 in the warp's
+// own Q rows and stored with 16-byte stores.  Three products per key tile
+// where dK/dV has four.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,23 +95,18 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kB / kWarps;   // rows per warp
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 __device__ __forceinline__ float dot4(float4 a, const float* b) {
   return a.x * b[0] + a.y * b[1] + a.z * b[2] + a.w * b[3];
 }
 
-// Stage rows r0 .. r0+kB-1 of a (N, d) matrix as fp32 with row stride S,
-// zeros past N and past d.
-template <typename T, int DP, int S>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+// Stage rows r0 .. r0+kB-1 of a (N, d) matrix with row stride S, zeros
+// past N and past d.
+template <int DP, int S>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int r0, int N, int d) {
   for (int i = threadIdx.x; i < kB * DP; i += kThreads) {
     const int r = i / DP, c = i % DP;
-    dst[r * S + c] = (r0 + r < N && c < d) ? to_f(src[(int64_t)(r0 + r) * d + c]) : 0.f;
+    dst[r * S + c] = (r0 + r < N && c < d) ? src[(int64_t)(r0 + r) * d + c] : 0.f;
   }
 }
 
@@ -120,11 +132,11 @@ constexpr size_t dq_smem_floats() {
          + 2 * (size_t)kB;            // LSE (log2), delta
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int N, int d,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int N, int d,
     float scale) {
   constexpr int KS = DP + 1;
   constexpr int CPL = DP / 32;  // output columns per lane
@@ -142,8 +154,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int64_t base = (int64_t)bh * N * d;
   const float qs = scale * kLog2e;
 
-  stage<T, DP, DP>(Qs, q + base, q0, N, d);
-  stage<T, DP, DP>(dOs, dout + base, q0, N, d);
+  stage<DP, DP>(Qs, q + base, q0, N, d);
+  stage<DP, DP>(dOs, dout + base, q0, N, d);
   stage_rows(Ls, Ds, lse + (int64_t)bh * N, delta + (int64_t)bh * N, q0, N);
 
   float acc[kRows][CPL];
@@ -157,8 +169,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
   for (int k0 = 0; k0 < N; k0 += kB) {
     __syncthreads();  // the previous tile is consumed (and Q, dO are staged)
-    stage<T, DP, KS>(Ks, k + base, k0, N, d);
-    stage<T, DP, KS>(Vs, v + base, k0, N, d);
+    stage<DP, KS>(Ks, k + base, k0, N, d);
+    stage<DP, KS>(Vs, v + base, k0, N, d);
     __syncthreads();
 
     // s = q.k and dp = dO.v for keys lane ([0]) and lane+32 ([1])
@@ -226,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int c = lane + 32 * j;
-      if (c < d) from_f(dq + base + (int64_t)row * d + c, acc[r][j] * scale);
+      if (c < d) dq[base + (int64_t)row * d + c] = acc[r][j] * scale;
     }
   }
 }
@@ -241,11 +253,11 @@ constexpr size_t dkv_smem_floats() {
          + 2 * (size_t)kB;            // LSE (log2), delta of that tile
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
     int N, int d, float scale) {
   constexpr int QS = DP + 1;
   constexpr int CPL = DP / 32;
@@ -264,8 +276,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int64_t base = (int64_t)bh * N * d;
   const float qs = scale * kLog2e;
 
-  stage<T, DP, DP>(Ks, k + base, k0, N, d);
-  stage<T, DP, DP>(Vs, v + base, k0, N, d);
+  stage<DP, DP>(Ks, k + base, k0, N, d);
+  stage<DP, DP>(Vs, v + base, k0, N, d);
 
   float gk[kRows][CPL], gv[kRows][CPL];
 #pragma unroll
@@ -279,8 +291,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   for (int q0 = 0; q0 < N; q0 += kB) {
     __syncthreads();  // the previous tile is consumed (and K, V are staged)
-    stage<T, DP, QS>(Qs, q + base, q0, N, d);
-    stage<T, DP, QS>(dOs, dout + base, q0, N, d);
+    stage<DP, QS>(Qs, q + base, q0, N, d);
+    stage<DP, QS>(dOs, dout + base, q0, N, d);
     stage_rows(Ls, Ds, lse + (int64_t)bh * N, delta + (int64_t)bh * N, q0, N);
     __syncthreads();
 
@@ -359,62 +371,61 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     for (int j = 0; j < CPL; ++j) {
       const int c = lane + 32 * j;
       if (c < d) {
-        from_f(dk + base + (int64_t)key * d + c, gk[r][j] * scale);
-        from_f(dv + base + (int64_t)key * d + c, gv[r][j]);
+        dk[base + (int64_t)key * d + c] = gk[r][j] * scale;
+        dv[base + (int64_t)key * d + c] = gv[r][j];
       }
     }
   }
 }
 
-template <typename T, int DP>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int BH, int N,
-              int d, float scale, cudaStream_t s) {
+template <int DP>
+int launch_dq_fma(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dq, int BH, int N,
+                  int d, float scale, cudaStream_t s) {
   const size_t smem = dq_smem_floats<DP>() * sizeof(float);
-  auto kern = flash_bwd_dq_kernel<T, DP>;
+  auto kern = flash_bwd_dq_kernel<DP>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + kB - 1) / kB, BH);
   kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), N, d, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), N, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int BH, int N, int d, float scale, cudaStream_t s) {
+template <int DP>
+int launch_dkv_fma(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dk, void* dv,
+                   int BH, int N, int d, float scale, cudaStream_t s) {
   const size_t smem = dkv_smem_floats<DP>() * sizeof(float);
-  auto kern = flash_bwd_dkv_kernel<T, DP>;
+  auto kern = flash_bwd_dkv_kernel<DP>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + kB - 1) / kB, BH);
   kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), N, d, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), N, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* delta, void* dq, int BH, int N,
-                int d, float scale, cudaStream_t s) {
-  if (d <= 32) return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
-  if (d <= 64) return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
-  return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
+int dispatch_dq_fma(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dq, int BH, int N,
+                    int d, float scale, cudaStream_t s) {
+  if (d <= 32) return launch_dq_fma<32>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
+  if (d <= 64) return launch_dq_fma<64>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
+  return launch_dq_fma<128>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
 }
 
-template <typename T>
-int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                 const float* lse, const float* delta, void* dk, void* dv,
-                 int BH, int N, int d, float scale, cudaStream_t s) {
-  if (d <= 32) return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
-  if (d <= 64) return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
-  return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
+int dispatch_dkv_fma(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* dk, void* dv,
+                     int BH, int N, int d, float scale, cudaStream_t s) {
+  if (d <= 32) return launch_dkv_fma<32>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
+  if (d <= 64) return launch_dkv_fma<64>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
+  return launch_dkv_fma<128>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
 }
 
 // ------------------------------------------------------- dK, dV, bf16, tensor cores
@@ -651,6 +662,208 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, N, d, scale, s);
 }
 
+// ------------------------------------------------------- dQ, bf16, tensor cores
+
+constexpr int kBQ = 16 * kWarps;  // queries per block, 16 per warp
+constexpr int kDqStages = 3;      // key tiles in the ring: 3 blocks fit an SM
+
+// Keys per tile: 64, or 32 at d = 128, where dQ alone holds 64 fp32
+// accumulators per lane.  Q and dO fragments stay in the registers up to
+// d = 64; at d = 128 they are read from shared memory at each use.
+template <int DP> __host__ __device__ constexpr int dq_bk() { return DP == 128 ? 32 : 64; }
+template <int DP> __host__ __device__ constexpr bool qo_in_regs() { return DP <= 64; }
+
+template <int DP>
+constexpr size_t dq_smem_bytes() {  // Q, dO; kDqStages x (K, V)
+  return (size_t)(2 * kBQ + 2 * kDqStages * dq_bk<DP>()) * (DP + 8) * sizeof(bf16);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int N, int d, float scale,
+    bool vec) {
+  using namespace mma_bf16;
+  constexpr int BK = dq_bk<DP>();
+  constexpr bool QO_REGS = qo_in_regs<DP>();
+  constexpr int LD = DP + 8;   // padded row: ldmatrix without bank conflicts
+  constexpr int KC = DP / 16;  // 16-wide chunks of the head dim
+  constexpr int KT = BK / 8;   // 8-key column tiles of S and dP
+  constexpr int DT = DP / 8;   // 8-wide column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kBQ * LD;
+  bf16* Ks = dOs + kBQ * LD;          // [kDqStages][BK * LD]
+  bf16* Vs = Ks + kDqStages * BK * LD;  // [kDqStages][BK * LD]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int64_t base = (int64_t)bh * N * d;
+  const float qs = scale * kLog2e;
+  const int ntiles = (N + BK - 1) / BK;
+
+  // LSE (in log2) and delta of this lane's two rows, g and g+8 of the
+  // warp's 16; rows past N give 0 (their Q and dO are zeros: dS = 0)
+  float lg[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    lg[h] = r < N ? lse[(int64_t)bh * N + r] * kLog2e : 0.f;
+    dl[h] = r < N ? delta[(int64_t)bh * N + r] : 0.f;
+  }
+
+  // key tile j to stage j % kDqStages: K and V, zeros past N; one commit group
+  // per tile (empty past the last)
+  auto load_kv_tile = [&](int j) {
+    if (j < ntiles) {
+      const int b = j % kDqStages;
+      load_tile<BK, DP, LD, kThreads>(Ks + b * BK * LD, k + base, j * BK, N, d, vec);
+      load_tile<BK, DP, LD, kThreads>(Vs + b * BK * LD, v + base, j * BK, N, d, vec);
+    }
+    cp_async_commit();
+  };
+
+  load_tile<kBQ, DP, LD, kThreads>(Qs, q + base, q0, N, d, vec);
+  load_tile<kBQ, DP, LD, kThreads>(dOs, dout + base, q0, N, d, vec);
+#pragma unroll
+  for (int j = 0; j < kDqStages - 1; ++j) load_kv_tile(j);  // Q, dO ride with tile 0
+  cp_async_wait<kDqStages - 2>();
+  __syncthreads();
+
+  // A fragments of the warp's 16 queries (rows of Q and dO): in the
+  // registers, or from shared memory at each use
+  uint32_t qf[QO_REGS ? KC : 1][4], of[QO_REGS ? KC : 1][4];
+  if constexpr (QO_REGS) {
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      load_a(qf[c], Qs, LD, warp * 16, c * 16, lane);
+      load_a(of[c], dOs, LD, warp * 16, c * 16, lane);
+    }
+  }
+  auto a_of = [&](uint32_t (&regs)[QO_REGS ? KC : 1][4], const bf16* tile, int c,
+                  uint32_t (&a)[4]) {
+    if constexpr (QO_REGS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = regs[c][i];
+    } else {
+      load_a(a, tile, LD, warp * 16, c * 16, lane);
+    }
+  };
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j > 0) {
+      cp_async_wait<kDqStages - 2>();
+      __syncthreads();  // tile j has landed everywhere; tile j-1's stage is free
+    }
+    load_kv_tile(j + kDqStages - 1);  // in flight while tiles j .. j+kDqStages-2 are computed
+    const int b = j % kDqStages;
+    const bf16* Kt = Ks + b * BK * LD;
+    const bf16* Vt = Vs + b * BK * LD;
+    const int kmax = N - j * BK;  // keys of this tile that exist
+
+    // S = Q K^T: the warp's 16 queries (rows) by the tile's keys
+    float p[KT][4];
+#pragma unroll
+    for (int n = 0; n < KT; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t a[4];
+      a_of(qf, Qs, c, a);
+#pragma unroll
+      for (int n = 0; n < KT; n += 2) {
+        uint32_t bb[4];
+        load_bt(bb, Kt, LD, n * 8, c * 16, lane);
+        mma(p[n], a, bb[0], bb[1]);
+        mma(p[n + 1], a, bb[2], bb[3]);
+      }
+    }
+    // P = exp2(S * scale * log2(e) - LSE * log2(e)); keys past N give 0.
+    // Element e of p[n] is query g (e < 2) or g+8, key 8n + 2t + (e & 1).
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t + (e & 1);
+        p[n][e] = col < kmax ? exp2_approx(fmaf(p[n][e], qs, -lg[e >> 1])) : 0.f;
+      }
+
+    // dP = dO V^T
+    float ds[KT][4];
+#pragma unroll
+    for (int n = 0; n < KT; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t a[4];
+      a_of(of, dOs, c, a);
+#pragma unroll
+      for (int n = 0; n < KT; n += 2) {
+        uint32_t bb[4];
+        load_bt(bb, Vt, LD, n * 8, c * 16, lane);
+        mma(ds[n], a, bb[0], bb[1]);
+        mma(ds[n + 1], a, bb[2], bb[3]);
+      }
+    }
+    // dS = P * (dP - delta), in fp32
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - dl[e >> 1]);
+
+    // dQ += dS K, dS rounded to bf16 in the registers, K by the transposing
+    // ldmatrix on the same rows
+#pragma unroll
+    for (int c = 0; c < KT / 2; ++c) {
+      uint32_t a[4];
+      c_to_a(a, ds[2 * c], ds[2 * c + 1]);
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t bb[4];
+        load_b(bb, Kt, LD, c * 16, n * 8, lane);
+        mma(acc[n], a, bb[0], bb[1]);
+        mma(acc[n + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+
+  // the warp's Q rows are read by this warp alone: stage dQ * scale there
+  __syncwarp();
+  bf16* Qw = Qs + warp * 16 * LD;
+  stage_c<DT, LD>(Qw, acc, scale, scale, lane);
+  __syncwarp();
+  store_rows16<DP, LD>(dq + base, Qw, q0 + warp * 16, N, d, vec, lane);
+}
+
+template <int DP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int BH, int N, int d,
+              float scale, cudaStream_t s) {
+  const void* ptrs[] = {q, k, v, dout, dq};
+  const bool vec = mma_bf16::vec_ok(d, ptrs, 5);
+  const size_t smem = dq_smem_bytes<DP>();
+  auto kern = flash_bwd_dq_tc_kernel<DP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + kBQ - 1) / kBQ, BH);
+  kern<<<grid, kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), N, d, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dq, int BH, int N, int d,
+                float scale, cudaStream_t s) {
+  if (d <= 32) return launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
+  if (d <= 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
+  return launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, N, d, scale, s);
+}
+
 }  // namespace tc
 
 bool bad_shape(int BH, int N, int d) {
@@ -662,6 +875,7 @@ bool bad_shape(int BH, int N, int d) {
 // q, k, v, dout, dq: (BH, N, d) contiguous, fp32 (is_bf16 = 0) or bf16 (1),
 // d <= 128.  lse (natural log) and delta = rowsum(dout * o): (BH, N) fp32.
 // scale: the softmax scale of the forward, 1/sqrt(d) for SDPA.
+// bf16 on the tensor-core kernel, fp32 on the FMA kernel.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -671,9 +885,8 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
-  return is_bf16
-             ? dispatch_dq<__nv_bfloat16>(q, k, v, dout, l, de, dq, BH, N, d, scale, s)
-             : dispatch_dq<float>(q, k, v, dout, l, de, dq, BH, N, d, scale, s);
+  return is_bf16 ? tc::dispatch_dq(q, k, v, dout, l, de, dq, BH, N, d, scale, s)
+                 : dispatch_dq_fma(q, k, v, dout, l, de, dq, BH, N, d, scale, s);
 }
 
 // As flash_attn_bwd_dq, writing dk and dv: (BH, N, d) in the input dtype;
@@ -688,5 +901,5 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
   return is_bf16 ? tc::dispatch_dkv(q, k, v, dout, l, de, dk, dv, BH, N, d, scale, s)
-                 : dispatch_dkv<float>(q, k, v, dout, l, de, dk, dv, BH, N, d, scale, s);
+                 : dispatch_dkv_fma(q, k, v, dout, l, de, dk, dv, BH, N, d, scale, s);
 }

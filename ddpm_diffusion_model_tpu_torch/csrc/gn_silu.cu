@@ -27,9 +27,14 @@
 // NHWC tensor: C/G channels of one pixel, then the next pixel.  Any C with
 // C % G == 0 is accepted (no lane-multiple gate as on the TPU).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <mutex>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -175,125 +180,460 @@ extern "C" int gn_silu_fwd(const void* x, const void* gamma, const void* beta,
 //
 // What bounds it on the card: bytes.  It must read x and dy and write dx
 // once (3 * B*H*W*C * itemsize) plus the (B, C) fp32 vectors; ~30 flops
-// and one exp per element, far under the flops/byte where an H100 turns
-// compute-bound.
+// and two exps and reciprocals per element over the two sweeps, under the
+// flops/byte where an H100 turns compute-bound.
 //
-// Design.  As the forward: one CUDA block owns one (group, image) pair, so
-// the per-group moments m1, m2 need no pass across blocks (the TPU version
-// sums per-H-block partials in XLA between two kernels).  Sweep 1
-// recomputes z and dz and sums S1, S2 per channel; the block forms m1, m2;
-// sweep 2 recomputes again and writes dx (and sums dtb).  Each thread keeps
-// one channel for the whole sweep (threads (pixel lane, channel) with
-// min(cg, 256) channels per pass), so the per-channel sums are a thread's
-// own register sum followed by a fixed-order sum over the pixel lanes in
-// shared memory: no atomics, the result is the same on every run.
+// Design.  The tensor is NHWC, so a pixel's C channels are contiguous and a
+// group's are not: a block owns a chunk of one image's pixels across all C
+// channels.  The chunk streams through shared memory in tiles of whole
+// pixel rows (16 KB of x and dy): 16-byte cp.async copies, neighbouring
+// threads on neighbouring addresses, in a ring of 3 stages, so two tiles
+// are in flight while one is computed without holding registers.  A thread
+// keeps one column of 4 channels (16 bytes of fp32, 8 of bf16 from shared
+// memory) with their affine, mean and rstd folded into 6 constants in
+// registers; C wider than 1,024 channels goes in passes.  The blocks that
+// share an image form a thread-block cluster of 1, 2, 4, 8 or 16 (the plan,
+// _gn_bwd_plan in ops/fused_norm.py):
+//   sweep 1  recomputes z and dz, sums S1, S2 per channel in registers, then
+//            over the block's pixel lanes in shared memory in a fixed order;
+//   cluster  every block reads every block's partials through distributed
+//            shared memory in rank order, so every block holds the image's
+//            S1, S2 (bit-equal across blocks and runs, no atomics), rank 0
+//            writes them, and each block forms m1, m2 per group; sweep 2's
+//            first tiles are already in flight;
+//   sweep 2  recomputes dz and writes dx, visiting the tiles last to first
+//            (those read last are the likeliest still in L2); dtb's
+//            per-channel sum of du is reduced as S1 and written by rank 0.
+// Where every tile of the chunk fits in shared memory beside two more
+// blocks (in_smem), sweep 1 leaves them there and sweep 2 reads them from
+// there, so x and dy leave HBM once; elsewhere sweep 2 re-reads the chunk
+// through the ring.  A row that is not whole 16-byte units, or an operand
+// not 16-byte aligned, takes the same kernel with element copies and one
+// channel per thread.  80 registers and at most 77 KB of shared memory:
+// 3 blocks of 256 threads per SM.
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gn_silu_bwd_kernel(
+namespace cg = cooperative_groups;
+using mma_bf16::cp_async16;
+using mma_bf16::cp_async_commit;
+using mma_bf16::cp_async_wait;
+
+constexpr int kBwdThreads = 256;           // at most; cw * ppi exactly
+constexpr int kMaxPass = kBwdThreads * 4;  // channels of one pass, at most
+constexpr int kMaxCluster = 16;
+constexpr int kStageBytes = 16384;         // x and dy of one tile, at most
+constexpr int kRingStages = 3;             // tiles of the ring: 2 in flight
+constexpr size_t kMaxSmem = 232448;        // an H100 block's shared memory
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The shared-memory layout of a launch (mirrored by _gn_bwd_smem in
+// ops/fused_norm.py): `stages` tiles of `tile` pixels of x and dy (the
+// ring, or when in_smem every tile of the chunk), then fp32 scratch: two
+// pass-wide reduction buffers, two per-channel partials, the two
+// per-group sums.  A ring too large for the block drops to 3, then 2
+// stages.
+struct BwdSmem {
+  int tile, stages;
+  size_t bytes;
+};
+
+BwdSmem bwd_smem(int C, int G, int chunk, bool in_smem, int itemsize) {
+  const size_t row = 2 * (size_t)C * itemsize;  // x and dy of one pixel
+  int tile = (int)(kStageBytes / row);
+  tile = tile < 1 ? 1 : (tile > chunk ? chunk : tile);
+  const size_t scratch =
+      sizeof(float) * (2 * (size_t)kMaxPass + 2 * (size_t)(C < kMaxPass ? C : kMaxPass)
+                       + 2 * (size_t)G);
+  int stages = in_smem ? (chunk + tile - 1) / tile : kRingStages;
+  while (!in_smem && stages > 2 && scratch + stages * tile * row > kMaxSmem) --stages;
+  return {tile, stages, scratch + (size_t)stages * tile * row};
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// 2^x and 1/x on the SFU (2 ulp and 1 ulp; 2^x of a large x is +inf, and
+// 1/inf is 0, so sig(z) saturates to 0 and 1 without a NaN).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// SiLU'(z) = sig(z) (1 + z (1 - sig(z))) = sig + z (sig - sig^2)
+__device__ __forceinline__ float silu_grad(float z) {
+  const float sg = rcp_approx(1.f + exp2_approx(z * -kLog2e));
+  return fmaf(z, fmaf(-sg, sg, sg), sg);
+}
+
+// The cluster barrier in two halves: arrive (release), then wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Sum over the block's pixel lanes, in lane order, of the per-thread
+// partials red[(lane * cw + column) * V + i]; stride = cw * V.
+__device__ __forceinline__ float lane_sum(const float* red, int ch, int ppi, int stride) {
+  float t = 0.f;
+  for (int l = 0; l < ppi; ++l) t += red[l * stride + ch];
+  return t;
+}
+
+// Sum over the cluster's blocks, in rank order, of element ch of the
+// array `a` in each block's shared memory (all loads issued first).
+__device__ __forceinline__ float rank_sum(cg::cluster_group& cluster, float* a, int ch,
+                                          int ranks) {
+  float t = 0.f;
+  for (int r0 = 0; r0 < ranks; r0 += 4) {  // 4 loads in flight at a time
+    float v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r0 + r < ranks) v[r] = cluster.map_shared_rank(a, r0 + r)[ch];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r0 + r < ranks) t += v[r];
+  }
+  return t;
+}
+
+// V = 4: rows of whole 16-byte units, copied by 16-byte cp.async, and 4
+// channels per thread (16 bytes of fp32, 8 of bf16, from shared memory);
+// V = 1: element copies and one channel per thread.
+template <typename T, int V, bool SMEM>
+__global__ void __launch_bounds__(kBwdThreads, 3) gn_silu_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ dy,
     const float* __restrict__ gamma, const float* __restrict__ beta,
     const float* __restrict__ tb, const float* __restrict__ mean,
     const float* __restrict__ rstd, T* __restrict__ dx,
     float* __restrict__ s1_out, float* __restrict__ s2_out,
-    float* __restrict__ dtb_out, int HW, int C, int cg) {
-  extern __shared__ float sm[];  // 3 * cg floats: time bias, gamma, beta
-  float* s_tb = sm;
-  float* s_g = sm + cg;
-  float* s_b = sm + 2 * cg;
-  __shared__ float part1[kThreads], part2[kThreads];
-  __shared__ float red[kWarps];
+    float* __restrict__ dtb_out, int HW, int C, int G, int chunk, int tile, int stages) {
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // [stages][x, dy][tile][C]
+  const int tile_n = tile * C;           // elements of one tile of x (or dy)
+  float* red1 = reinterpret_cast<float*>(ring + (size_t)stages * 2 * tile_n);
+  float* red2 = red1 + kMaxPass;
+  float* part1 = red2 + kMaxPass;  // read by the other blocks of the cluster
+  float* part2 = part1 + (C < kMaxPass ? C : kMaxPass);
+  float* mg1 = part2 + (C < kMaxPass ? C : kMaxPass);
+  float* mg2 = mg1 + G;
 
-  const int tid = threadIdx.x;
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int c0 = g * cg;
-  const int64_t img = (int64_t)b * HW * C + c0;
-  const T* xb = x + img;
-  const T* dyb = dy + img;
-  T* dxb = dx + img;
-  const int64_t vec = (int64_t)b * C + c0;  // (b, c0) in the (B, C) vectors
-  const float mu = mean[vec], rs = rstd[vec];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int rank = blockIdx.x, ranks = gridDim.x, b = blockIdx.y;
+  const int p0 = rank * chunk;
+  const int npx = max(0, min(chunk, HW - p0));  // this block's pixels
+  const int ntiles = (npx + tile - 1) / tile;
+  const int cg_ = C / G;
+  const int CV = C / V;                          // accesses per pixel
+  const int cw = min(CV, kBwdThreads);           // access columns per pass
+  const int ppi = nt / cw;                       // pixel lanes (nt = cw * ppi)
+  const int vc = tid % cw, pl = tid / cw;
+  const int64_t bc = (int64_t)b * C;
+  const int64_t img = ((int64_t)b * HW + p0) * C;
+  const T* xg = x + img;
+  const T* dyg = dy + img;
+  T* dxg = dx + img;
+  const float inv_n = 1.f / (float(HW) * float(cg_));
+  // tiles in flight ahead of the one computed: the ring's stages less one
+  const int ahead = SMEM ? kRingStages - 1 : stages - 1;
+  bool pending = false;  // an arrive on the cluster barrier not yet waited for
 
-  for (int i = tid; i < cg; i += kThreads) {
-    s_tb[i] = tb ? tb[vec + i] : 0.f;
-    s_g[i] = gamma[c0 + i];
-    s_b[i] = beta[c0 + i];
-  }
-  __syncthreads();
-
-  // thread layout of one pass: cw channels x ppi pixel lanes
-  const int cw = cg < kThreads ? cg : kThreads;
-  const int ppi = kThreads / cw;
-  const int lane_c = tid % cw, lane_p = tid / cw;
-  const bool active = lane_p < ppi;
-
-  // sweep 1: S1, S2 per channel; this thread's share of m1, m2
-  float m1 = 0.f, m2 = 0.f;
-  for (int cb = 0; cb < cg; cb += cw) {
-    const int ch = cb + lane_c;
-    float a1 = 0.f, a2 = 0.f;
-    if (active && ch < cg) {
-      const float tbc = s_tb[ch], gc = s_g[ch], bc = s_b[ch];
-      for (int p = lane_p; p < HW; p += ppi) {
-        const int64_t off = (int64_t)p * C + ch;
-        const float xh = (to_f(xb[off]) + tbc - mu) * rs;
-        const float z = xh * gc + bc;
-        const float sg = 1.f / (1.f + expf(-z));
-        const float dz = to_f(dyb[off]) * sg * (1.f + z * (1.f - sg));
-        a1 += dz;
-        a2 += dz * xh;
+  // A sweep visits the tiles in order j = 0, 1, ...: tile j, or, for sweep
+  // 2 through the ring, tile ntiles-1-j (the last tiles read are the likeliest
+  // still in L2).  The j-th tile's x is in stage j of the ring (or, in_smem,
+  // at its own place), its dy at + tile_n.
+  auto tile_at = [&](int j, bool rev) { return rev ? ntiles - 1 - j : j; };
+  auto stage_x = [&](int j) { return ring + (size_t)(SMEM ? j : j % stages) * 2 * tile_n; };
+  // copy the j-th tile's x and dy to its stage; one commit group per tile
+  // (empty past the last)
+  auto fetch = [&](int j, bool rev) {
+    if (j < ntiles) {
+      T* dst = stage_x(j);
+      const int t = tile_at(j, rev);
+      const int64_t off = (int64_t)t * tile_n;
+      const int n = min(tile, npx - t * tile) * C;
+      if constexpr (V > 1) {
+        constexpr int E = 16 / sizeof(T);
+        for (int i = tid * E; i < n; i += nt * E) {
+          cp_async16(dst + i, xg + off + i, 16);
+          cp_async16(dst + tile_n + i, dyg + off + i, 16);
+        }
+      } else {
+        for (int i = tid; i < n; i += nt) {
+          dst[i] = xg[off + i];
+          dst[tile_n + i] = dyg[off + i];
+        }
       }
     }
-    part1[tid] = a1;
-    part2[tid] = a2;
+    cp_async_commit();
+  };
+  // tile j has landed once at most ahead - 1 younger groups are pending
+  auto landed = [&]() {
+    if (ahead >= 3) cp_async_wait<2>();
+    else if (ahead == 2) cp_async_wait<1>();
+    else cp_async_wait<0>();
+  };
+
+  // the first tiles of a sweep: in flight while the block reads its
+  // constants (or, for sweep 2, while the cluster reduces sweep 1)
+  auto prologue = [&](bool rev) {
+    __syncthreads();  // the stages are free
+    for (int j = 0; j < ahead; ++j) fetch(j, rev);
+  };
+
+  for (int i = tid; i < 2 * G; i += nt) mg1[i] = 0.f;
+
+  // sweep 1: S1, S2 per channel, pass by pass
+  for (int cb = 0; cb < CV; cb += cw) {
+    const int ncol = min(cw, CV - cb);
+    const int cpass = cb * V, wpass = ncol * V;  // the pass's channels
+    const int c0 = (cb + vc) * V;                // this thread's channels
+    const bool active = vc < ncol;
+    const bool load = !SMEM || cb == 0;  // in_smem: the chunk stays after pass 0
+    if (load) prologue(false);
+    // xhat = x rstd + (tb - mu) rstd,  z = x a + (tb - mu) a + beta, a = gamma rstd
+    float rs[V], sh[V], za[V], zc[V], a1[V], a2[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = active ? c0 + i : 0;
+      const float d = (tb ? tb[bc + c] : 0.f) - mean[bc + c];
+      rs[i] = rstd[bc + c];
+      sh[i] = d * rs[i];
+      za[i] = gamma[c] * rs[i];
+      zc[i] = fmaf(d, za[i], beta[c]);
+      a1[i] = a2[i] = 0.f;
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      if (load) {
+        landed();
+        __syncthreads();  // tile j is visible; tile j-1's stage is free
+        fetch(j + ahead, false);
+      }
+      const T* xt = stage_x(j);
+      const int rows = min(tile, npx - j * tile);
+      if (active) {
+#pragma unroll 2
+        for (int p = pl; p < rows; p += ppi) {
+          const P xv = *reinterpret_cast<const P*>(xt + p * C + c0);
+          const P gv = *reinterpret_cast<const P*>(xt + tile_n + p * C + c0);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float xi = to_f(xv.v[i]);
+            const float xh = fmaf(xi, rs[i], sh[i]);
+            const float dz = to_f(gv.v[i]) * silu_grad(fmaf(xi, za[i], zc[i]));
+            a1[i] += dz;
+            a2[i] = fmaf(dz, xh, a2[i]);
+          }
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        red1[tid * V + i] = a1[i];
+        red2[tid * V + i] = a2[i];
+      }
+    }
+    if (!SMEM && cb + cw >= CV) prologue(true);  // sweep 2's first tiles
     __syncthreads();
-    if (tid < cw && cb + tid < cg) {
-      float t1 = 0.f, t2 = 0.f;
-      for (int i = 0; i < ppi; ++i) {
-        t1 += part1[i * cw + tid];
-        t2 += part2[i * cw + tid];
+    if (pending) {  // every block has read the previous pass's partials
+      cluster_wait();
+      pending = false;
+    }
+    for (int ch = tid; ch < wpass; ch += nt) {
+      part1[ch] = lane_sum(red1, ch, ppi, cw * V);
+      part2[ch] = lane_sum(red2, ch, ppi, cw * V);
+    }
+    cluster_arrive();
+    cluster_wait();  // every block's partials are written and visible
+    // the image's sums, rank by rank in a fixed order, on every block
+    for (int ch = tid; ch < wpass; ch += nt) {
+      const float t1 = rank_sum(cluster, part1, ch, ranks);
+      const float t2 = rank_sum(cluster, part2, ch, ranks);
+      if (rank == 0) {
+        s1_out[bc + cpass + ch] = t1;
+        s2_out[bc + cpass + ch] = t2;
       }
-      s1_out[vec + cb + tid] = t1;
-      s2_out[vec + cb + tid] = t2;
-      m1 += s_g[cb + tid] * t1;
-      m2 += s_g[cb + tid] * t2;
+      red1[ch] = gamma[cpass + ch] * t1;
+      red2[ch] = gamma[cpass + ch] * t2;
+    }
+    cluster_arrive();  // done with the other blocks' partials
+    pending = true;
+    __syncthreads();
+    // gamma * S1 and gamma * S2 summed per group, channel by channel
+    const int g_lo = cpass / cg_, g_hi = (cpass + wpass - 1) / cg_;
+    for (int grp = g_lo + tid; grp <= g_hi; grp += nt) {
+      const int lo = max(grp * cg_, cpass), hi = min((grp + 1) * cg_, cpass + wpass);
+      float m1 = mg1[grp], m2 = mg2[grp];
+      for (int c = lo; c < hi; ++c) {
+        m1 += red1[c - cpass];
+        m2 += red2[c - cpass];
+      }
+      mg1[grp] = m1;
+      mg2[grp] = m2;
     }
     __syncthreads();
   }
-  const float inv_n = 1.f / (float(HW) * float(cg));
-  m1 = block_sum(m1, red) * inv_n;
-  m2 = block_sum(m2, red) * inv_n;
 
-  // sweep 2: dx (and the per-channel sum of du for dtb)
-  for (int cb = 0; cb < cg; cb += cw) {
-    const int ch = cb + lane_c;
-    float a = 0.f;
-    if (active && ch < cg) {
-      const float tbc = s_tb[ch], gc = s_g[ch], bc = s_b[ch];
-      for (int p = lane_p; p < HW; p += ppi) {
-        const int64_t off = (int64_t)p * C + ch;
-        const float xh = (to_f(xb[off]) + tbc - mu) * rs;
-        const float z = xh * gc + bc;
-        const float sg = 1.f / (1.f + expf(-z));
-        const float dz = to_f(dyb[off]) * sg * (1.f + z * (1.f - sg));
-        const float du = (dz * gc - m1 - xh * m2) * rs;
-        from_f(dxb + off, du);
-        a += du;
+  // sweep 2: dx (and the per-channel sum of du for dtb), pass by pass
+  for (int cb = 0; cb < CV; cb += cw) {
+    const int ncol = min(cw, CV - cb);
+    const int cpass = cb * V, wpass = ncol * V;
+    const int c0 = (cb + vc) * V;
+    const bool active = vc < ncol;
+    // as sweep 1; du = dz a - m1 rstd - xhat (m2 rstd)
+    float rs[V], sh[V], za[V], zc[V], m1r[V], m2r[V], a3[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = active ? c0 + i : 0;
+      const float d = (tb ? tb[bc + c] : 0.f) - mean[bc + c];
+      rs[i] = rstd[bc + c];
+      sh[i] = d * rs[i];
+      za[i] = gamma[c] * rs[i];
+      zc[i] = fmaf(d, za[i], beta[c]);
+      m1r[i] = mg1[c / cg_] * inv_n * rs[i];
+      m2r[i] = mg2[c / cg_] * inv_n * rs[i];
+      a3[i] = 0.f;
+    }
+    if (!SMEM && cb > 0) prologue(true);  // pass 0's was issued before the reduction
+    for (int j = 0; j < ntiles; ++j) {
+      if (!SMEM) {
+        landed();
+        __syncthreads();
+        fetch(j + ahead, true);
+      }
+      const T* xt = stage_x(j);
+      const int t = tile_at(j, !SMEM);
+      const int rows = min(tile, npx - t * tile);
+      T* out = dxg + (int64_t)t * tile_n;
+      if (active) {
+#pragma unroll 2
+        for (int p = pl; p < rows; p += ppi) {
+          const P xv = *reinterpret_cast<const P*>(xt + p * C + c0);
+          const P gv = *reinterpret_cast<const P*>(xt + tile_n + p * C + c0);
+          P o;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float xi = to_f(xv.v[i]);
+            const float xh = fmaf(xi, rs[i], sh[i]);
+            const float dz = to_f(gv.v[i]) * silu_grad(fmaf(xi, za[i], zc[i]));
+            const float du = fmaf(dz, za[i], fmaf(-xh, m2r[i], -m1r[i]));
+            from_f(&o.v[i], du);
+            a3[i] += du;
+          }
+          *reinterpret_cast<P*>(out + p * C + c0) = o;
+        }
       }
     }
-    if (dtb_out) {  // uniform across the block
-      part1[tid] = a;
-      __syncthreads();
-      if (tid < cw && cb + tid < cg) {
-        float t = 0.f;
-        for (int i = 0; i < ppi; ++i) t += part1[i * cw + tid];
-        dtb_out[vec + cb + tid] = t;
+    if (dtb_out) {  // uniform across the cluster
+      if (active) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) red1[tid * V + i] = a3[i];
       }
       __syncthreads();
+      if (pending) {
+        cluster_wait();
+        pending = false;
+      }
+      for (int ch = tid; ch < wpass; ch += nt) part1[ch] = lane_sum(red1, ch, ppi, cw * V);
+      cluster_arrive();
+      cluster_wait();
+      if (rank == 0)
+        for (int ch = tid; ch < wpass; ch += nt)
+          dtb_out[bc + cpass + ch] = rank_sum(cluster, part1, ch, ranks);
+      cluster_arrive();
+      pending = true;
     }
   }
+  if (pending) cluster_wait();  // no block leaves while its partials may be read
 }
+
+// Launches whose cluster was found to fit (cudaOccupancyMaxActiveClusters
+// >= 1), so the query runs once per kernel, cluster size and shared memory.
+struct Fit {
+  const void* kern;
+  int cluster;
+  size_t smem;
+};
+std::mutex fit_lock;
+Fit fits[64];
+int n_fits = 0;
+
+template <typename K>
+cudaError_t check_cluster_fits(K kern, const cudaLaunchConfig_t& cfg, int cluster) {
+  const void* key = reinterpret_cast<const void*>(kern);
+  std::lock_guard<std::mutex> hold(fit_lock);
+  for (int i = 0; i < n_fits; ++i)
+    if (fits[i].kern == key && fits[i].cluster == cluster && fits[i].smem == cfg.dynamicSmemBytes)
+      return cudaSuccess;
+  int n = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (n < 1) return cudaErrorInvalidConfiguration;  // the cluster cannot be scheduled
+  if (n_fits < 64) fits[n_fits++] = Fit{key, cluster, cfg.dynamicSmemBytes};
+  return cudaSuccess;
+}
+
+template <typename T, int V, bool SMEM>
+int launch_bwd(const void* x, const void* dy, const float* ga, const float* be,
+               const float* t, const float* mu, const float* rs, void* dx, float* o1,
+               float* o2, float* od, int B, int HW, int C, int G, int cluster, int chunk,
+               BwdSmem sm, cudaStream_t s) {
+  const size_t smem = sm.bytes;
+  auto kern = gn_silu_bwd_kernel<T, V, SMEM>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  const int cw = C / V < kBwdThreads ? C / V : kBwdThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B);
+  cfg.blockDim = dim3(cw * (kBwdThreads / cw));  // column x pixel lanes
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = check_cluster_fits(kern, cfg, cluster);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), static_cast<const T*>(dy), ga,
+                         be, t, mu, rs, static_cast<T*>(dx), o1, o2, od, HW, C, G, chunk,
+                         sm.tile, sm.stages);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_bwd_route(bool in_smem, const void* x, const void* dy, const float* ga,
+                     const float* be, const float* t, const float* mu, const float* rs,
+                     void* dx, float* o1, float* o2, float* od, int B, int HW, int C, int G,
+                     int cluster, int chunk, BwdSmem sm, cudaStream_t s) {
+  return in_smem ? launch_bwd<T, V, true>(x, dy, ga, be, t, mu, rs, dx, o1, o2, od, B, HW, C,
+                                          G, cluster, chunk, sm, s)
+                 : launch_bwd<T, V, false>(x, dy, ga, be, t, mu, rs, dx, o1, o2, od, B, HW,
+                                           C, G, cluster, chunk, sm, s);
+}
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -301,18 +641,27 @@ __global__ void __launch_bounds__(kThreads) gn_silu_bwd_kernel(
 // gamma, beta: (C,) fp32.  tb: (B, C) fp32 or NULL (no time bias).
 // mean, rstd: (B, C) fp32 as gn_silu_fwd wrote them.  s1, s2: (B, C) fp32
 // outputs (sum dz, sum dz*xhat per channel).  dtb: (B, C) fp32 output, or
-// NULL to skip the time-bias gradient.
+// NULL to skip the time-bias gradient.  The plan (_gn_bwd_plan in
+// ops/fused_norm.py): cluster blocks per image (1, 2, 4, 8 or 16), each
+// owning chunk pixels (chunk * cluster >= H*W), and in_smem = 1 to keep
+// the chunk of x and dy in shared memory.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int gn_silu_bwd(const void* x, const void* dy, const void* gamma,
                            const void* beta, const void* tb, const void* mean,
                            const void* rstd, void* dx, void* s1, void* s2,
-                           void* dtb, int B, int HW, int C, int G, int is_bf16,
-                           void* stream) {
+                           void* dtb, int B, int HW, int C, int G, int cluster,
+                           int chunk, int in_smem, int is_bf16, void* stream) {
   if (B <= 0 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int cg = C / G;
-  const dim3 grid(G, B);
-  const size_t smem = 3 * (size_t)cg * sizeof(float);
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) || chunk < 1
+      || (int64_t)chunk * cluster < HW)
+    return (int)cudaErrorInvalidValue;
+  const int itemsize = is_bf16 ? 2 : 4;
+  const BwdSmem smem = bwd_smem(C, G, chunk, in_smem != 0, itemsize);
+  if (smem.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // 16-byte copies and 4 channels per thread where rows are whole 16-byte
+  // units and the pointers 16-byte aligned, else element copies
+  const bool vec = (C * itemsize) % 16 == 0 && aligned(x) && aligned(dy) && aligned(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ga = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
@@ -322,14 +671,15 @@ extern "C" int gn_silu_bwd(const void* x, const void* dy, const void* gamma,
   float* o1 = static_cast<float*>(s1);
   float* o2 = static_cast<float*>(s2);
   float* od = static_cast<float*>(dtb);
+  const bool sm = in_smem != 0;
   if (is_bf16) {
-    gn_silu_bwd_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-        ga, be, t, mu, rs, static_cast<__nv_bfloat16*>(dx), o1, o2, od, HW, C, cg);
-  } else {
-    gn_silu_bwd_kernel<float><<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), ga, be, t,
-        mu, rs, static_cast<float*>(dx), o1, o2, od, HW, C, cg);
+    return vec ? launch_bwd_route<__nv_bfloat16, 4>(sm, x, dy, ga, be, t, mu, rs, dx, o1, o2,
+                                                    od, B, HW, C, G, cluster, chunk, smem, s)
+               : launch_bwd_route<__nv_bfloat16, 1>(sm, x, dy, ga, be, t, mu, rs, dx, o1, o2,
+                                                    od, B, HW, C, G, cluster, chunk, smem, s);
   }
-  return (int)cudaGetLastError();
+  return vec ? launch_bwd_route<float, 4>(sm, x, dy, ga, be, t, mu, rs, dx, o1, o2, od, B, HW,
+                                          C, G, cluster, chunk, smem, s)
+             : launch_bwd_route<float, 1>(sm, x, dy, ga, be, t, mu, rs, dx, o1, o2, od, B, HW,
+                                          C, G, cluster, chunk, smem, s);
 }

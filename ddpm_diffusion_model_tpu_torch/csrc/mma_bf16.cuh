@@ -1,8 +1,8 @@
 // Helpers for bf16 tensor-core kernels on sm_90a: 16-byte cp.async with
 // zero fill, ldmatrix (plain and transposed) and mma.sync m16n8k16 with
-// fp32 accumulators.  Included by flash_attn.cu and flash_attn_bwd.cu;
-// ops/cuda_build.py hashes every csrc/*.cuh into each library's name, so a
-// change here rebuilds both.
+// fp32 accumulators.  Included by flash_attn.cu and flash_attn_bwd.cu, and
+// by gn_silu.cu for the cp.async helpers; ops/cuda_build.py hashes every
+// csrc/*.cuh into each library's name, so a change here rebuilds all three.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col (PTX ISA), for a
 // lane with g = lane / 4 and t = lane % 4:

@@ -6,8 +6,8 @@ input dtype and LSE in fp32.  ``flash_attn_fwd`` (O and LSE, from
 ``csrc/flash_attn.cu``) and ``flash_attn_bwd_dq`` / ``flash_attn_bwd_dkv``
 (from ``csrc/flash_attn_bwd.cu``) launch their kernels for CUDA tensors and
 run the plain versions for CPU tensors; a CUDA tensor a kernel does not
-take raises.  The forward and dK/dV have two kernels each behind one C
-entry point, chosen by dtype: bf16 on the tensor cores, fp32 on fp32 FMA.
+take raises.  Each of the three has two kernels behind one C entry point,
+chosen by dtype: bf16 on the tensor cores, fp32 on fp32 FMA.
 :func:`flash_attention` is the custom VJP of the JAX module as a
 ``torch.autograd.Function``: the forward saves q, k, v, O and LSE, the
 backward recomputes the probabilities from the LSE (no N x N buffer).
@@ -28,17 +28,20 @@ __all__ = ["flash_attn_reference", "flash_attn_fwd",
            "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "flash_attn_bwd",
            "flash_attention", "launches", "fwd_tc_launches",
            "fwd_fma_launches", "bwd_dq_launches", "bwd_dkv_launches",
-           "bwd_dkv_tc_launches", "bwd_dkv_fma_launches", "bwd_layout_copies"]
+           "bwd_dq_tc_launches", "bwd_dq_fma_launches", "bwd_dkv_tc_launches",
+           "bwd_dkv_fma_launches", "bwd_layout_copies"]
 
 #: Number of times :func:`flash_attn_fwd` launched a CUDA kernel, and of
 #: those the tensor-core kernel (bf16) and the FMA kernel (fp32).
 launches = 0
 fwd_tc_launches = 0
 fwd_fma_launches = 0
-#: Launches of the dQ and dK/dV kernels by their wrappers; dK/dV also by
+#: Launches of the dQ and dK/dV kernels by their wrappers, and of each by
 #: variant, tensor cores (bf16) and FMA (fp32).
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+bwd_dq_tc_launches = 0
+bwd_dq_fma_launches = 0
 bwd_dkv_tc_launches = 0
 bwd_dkv_fma_launches = 0
 #: Number of times the autograd backward had to copy a non-contiguous dO.
@@ -174,9 +177,10 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def flash_attn_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
-    """dQ for (BH, N, d) operands on the CUDA kernel (CUDA tensors) or the
-    plain version (CPU tensors); ``lse`` and ``delta`` (BH, N) fp32."""
-    global bwd_dq_launches
+    """dQ for (BH, N, d) operands: for CUDA tensors the tensor-core kernel
+    (bf16) or the FMA kernel (fp32), the plain version for CPU tensors;
+    ``lse`` and ``delta`` (BH, N) fp32."""
+    global bwd_dq_launches, bwd_dq_tc_launches, bwd_dq_fma_launches
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_attn_bwd_dq_reference(q, k, v, do, lse, delta)
@@ -191,6 +195,10 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd_dq kernel launch failed: cudaError {rc}")
     bwd_dq_launches += 1
+    if q.dtype == torch.bfloat16:
+        bwd_dq_tc_launches += 1
+    else:
+        bwd_dq_fma_launches += 1
     return dq
 
 

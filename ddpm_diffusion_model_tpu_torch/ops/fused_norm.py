@@ -30,14 +30,18 @@ from . import cuda_build
 
 __all__ = ["gn_silu_reference", "gn_silu_fwd", "gn_silu_bwd_reference",
            "gn_silu_bwd", "gn_silu", "gn_silu_bias", "launches",
-           "bwd_launches", "bwd_dtb_launches", "bwd_layout_copies"]
+           "bwd_launches", "bwd_dtb_launches", "bwd_smem_launches",
+           "bwd_reread_launches", "bwd_layout_copies"]
 
 #: Number of times :func:`gn_silu_fwd` launched the CUDA kernel.
 launches = 0
-#: Number of times :func:`gn_silu_bwd` launched the CUDA kernel, and how
-#: many of those launches also wrote the time-bias gradient.
+#: Number of times :func:`gn_silu_bwd` launched the CUDA kernel, how many
+#: of those launches also wrote the time-bias gradient, and how many kept
+#: the chunk of x and dy in shared memory or re-read it (the plan's route).
 bwd_launches = 0
 bwd_dtb_launches = 0
+bwd_smem_launches = 0
+bwd_reread_launches = 0
 #: Number of times the autograd backward had to copy a non-contiguous dy
 #: into the NHWC layout the backward kernel reads.
 bwd_layout_copies = 0
@@ -156,7 +160,7 @@ def _kernel(name: str):
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         else:
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
         _c_fns[name] = fn
     return fn
@@ -197,6 +201,90 @@ def gn_silu_fwd(
     return y, mean, rstd
 
 
+# The backward kernel's block size, widest channel pass, tile and ring
+# (kBwdThreads, kMaxPass, kStageBytes, kRingStages in csrc/gn_silu.cu), an
+# H100's SMs and the shared memory one of its blocks may use.
+_BWD_THREADS = 256
+_BWD_MAX_PASS = _BWD_THREADS * 4
+_STAGE_BYTES = 16384
+_RING_STAGES = 3
+_SMS = 132
+_SMEM_MAX = 232_448
+# A block asking at most this much leaves room for three on its SM (the
+# kernel's __launch_bounds__).
+_SMEM_PER_BLOCK = _SMEM_MAX // 3
+_MAX_CLUSTER = 16
+
+
+def _gn_bwd_smem(C: int, G: int, chunk: int, in_smem: bool, itemsize: int
+                 ) -> Tuple[int, int, int]:
+    """``(tile, stages, bytes)``: the shared-memory layout of one backward
+    block (``bwd_smem`` in ``csrc/gn_silu.cu``).  ``stages`` tiles of
+    ``tile`` pixels of x and dy (a ring, or every tile of the chunk when
+    ``in_smem``), then fp32 scratch: two pass-wide reduction buffers, two
+    per-channel partials, two per-group sums."""
+    row = 2 * C * itemsize
+    tile = max(1, min(chunk, _STAGE_BYTES // row))
+    scratch = 4 * (2 * _BWD_MAX_PASS + 2 * min(C, _BWD_MAX_PASS) + 2 * G)
+    stages = -(-chunk // tile) if in_smem else _RING_STAGES
+    while not in_smem and stages > 2 and scratch + stages * tile * row > _SMEM_MAX:
+        stages -= 1
+    return tile, stages, scratch + stages * tile * row
+
+
+def _gn_bwd_plan(B: int, HW: int, C: int, G: int, dtype: torch.dtype
+                 ) -> Tuple[int, int, bool]:
+    """``(cluster, chunk, in_smem)`` of the backward kernel for (B, HW, C)
+    NHWC input with G groups: ``cluster`` blocks per image (1, 2, 4, 8 or
+    16), each owning ``chunk`` pixels across all C channels, and whether
+    that chunk of x and dy stays in shared memory between the two sweeps.
+
+    The cluster doubles until the card has one and a half blocks per SM
+    to run, or it reaches 16 (or H*W): the grid stays one wave of big
+    chunks, which measured faster on an H100 than more, smaller chunks
+    whose blocks each pay the cluster reduction's latency.  The chunk
+    stays in shared memory if that still leaves room for three blocks
+    per SM; else the second sweep re-reads it through the ring."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    cs = 1
+    while cs < _MAX_CLUSTER and cs < HW and B * cs < _SMS + _SMS // 2:
+        cs *= 2
+    chunk = -(-HW // cs)
+    return cs, chunk, _gn_bwd_smem(C, G, chunk, True, item)[2] <= _SMEM_PER_BLOCK
+
+
+def _gn_bwd_launch(x, scale, bias, mean, rstd, dy, num_groups, time_bias, want_dtb,
+                   plan):
+    """Launch the backward kernel on checked CUDA tensors with ``plan``
+    (``(cluster, chunk, in_smem)``); returns (dx, S1, S2, dtb or None)."""
+    global bwd_launches, bwd_dtb_launches, bwd_smem_launches, bwd_reread_launches
+    B, H, W, C = x.shape
+    cluster, chunk, in_smem = plan
+    fn = _kernel("gn_silu_bwd")
+    dx = torch.empty_like(x)
+    s1 = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    s2 = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    dtb = torch.empty((B, C), dtype=torch.float32, device=x.device) if want_dtb else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                None if time_bias is None else time_bias.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), s1.data_ptr(),
+                s2.data_ptr(), None if dtb is None else dtb.data_ptr(),
+                B, H * W, C, num_groups, cluster, chunk, int(in_smem),
+                int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"gn_silu_bwd kernel launch failed: cudaError {rc} "
+                           f"(plan {plan})")
+    bwd_launches += 1
+    bwd_dtb_launches += int(want_dtb)
+    if in_smem:
+        bwd_smem_launches += 1
+    else:
+        bwd_reread_launches += 1
+    return dx, s1, s2, dtb
+
+
 def gn_silu_bwd(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -212,8 +300,9 @@ def gn_silu_bwd(
     tensors) or the plain version (CPU tensors).  Same arguments and
     outputs as :func:`gn_silu_bwd_reference`; x and dy must be contiguous
     NHWC of one shape and dtype.  dgamma and dbeta are one torch sum over
-    B of the kernel's per-image partials (no atomics)."""
-    global bwd_launches, bwd_dtb_launches
+    B of the kernel's per-image partials (no atomics).  The kernel takes C
+    up to about 26,000 channels at 16-bit and 13,000 at 32-bit (a pixel of
+    x and dy and the per-channel sums live in shared memory); wider raises."""
     _check(x, scale, bias, num_groups, time_bias)
     if want_dtb is None:
         want_dtb = time_bias is not None
@@ -233,22 +322,12 @@ def gn_silu_bwd(
                                      time_bias, want_dtb)
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu_bwd runs on cuda or cpu, not {x.device}")
-    fn = _kernel("gn_silu_bwd")
-    dx = torch.empty_like(x)
-    s1 = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    s2 = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    dtb = torch.empty((B, C), dtype=torch.float32, device=x.device) if want_dtb else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                None if time_bias is None else time_bias.data_ptr(),
-                mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), s1.data_ptr(),
-                s2.data_ptr(), None if dtb is None else dtb.data_ptr(),
-                B, H * W, C, num_groups, int(x.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"gn_silu_bwd kernel launch failed: cudaError {rc}")
-    bwd_launches += 1
-    bwd_dtb_launches += int(want_dtb)
+    if _gn_bwd_smem(C, num_groups, 1, False, x.element_size())[2] > _SMEM_MAX:
+        raise ValueError(f"gn_silu_bwd: C={C} with {num_groups} groups needs more shared "
+                         "memory than a block has")
+    plan = _gn_bwd_plan(B, H * W, C, num_groups, x.dtype)
+    dx, s1, s2, dtb = _gn_bwd_launch(x, scale, bias, mean, rstd, dy, num_groups,
+                                     time_bias, want_dtb, plan)
     return dx, s2.sum(0), s1.sum(0), dtb
 
 

@@ -85,16 +85,16 @@ FLASH_SHAPES = [(512, 256, 64), (512, 64, 64), (64, 256, 64), (64, 64, 64), (8, 
 
 
 def _variant_counts():
-    return (tfa.fwd_tc_launches, tfa.fwd_fma_launches, tfa.bwd_dkv_tc_launches,
-            tfa.bwd_dkv_fma_launches)
+    return (tfa.fwd_tc_launches, tfa.fwd_fma_launches, tfa.bwd_dq_tc_launches,
+            tfa.bwd_dq_fma_launches, tfa.bwd_dkv_tc_launches, tfa.bwd_dkv_fma_launches)
 
 
-def _variant_delta(before, dtype, fwd, dkv):
-    """The (tensor-core, FMA) launches of the forward and dK/dV since
+def _variant_delta(before, dtype, fwd, dq, dkv):
+    """The (tensor-core, FMA) launches of the forward, dQ and dK/dV since
     ``before``, as they must be: bf16 on the tensor cores, fp32 on FMA."""
     got = tuple(a - b for a, b in zip(_variant_counts(), before))
     tc = dtype == torch.bfloat16
-    return got, (fwd * tc, fwd * (not tc), dkv * tc, dkv * (not tc))
+    return got, (fwd * tc, fwd * (not tc), dq * tc, dq * (not tc), dkv * tc, dkv * (not tc))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -107,7 +107,7 @@ def test_flash_kernel_matches_plain(card, shape, dtype):
     o, lse = tfa.flash_attn_fwd(q, k, v)
     torch.cuda.synchronize()
     assert tfa.launches == before + 1
-    got, want = _variant_delta(variants, dtype, 1, 0)
+    got, want = _variant_delta(variants, dtype, 1, 0, 0)
     assert got == want
     o0, lse0 = tfa.flash_attn_reference(q, k, v)
     atol, rtol = TOL[dtype]
@@ -125,29 +125,59 @@ def _scaled_err(got, want):
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# the train step's shapes at smaller batches (both routes of the plan,
+# clusters of 4 to 16), C = 96 with G = 32, odd C (scalar accesses), C =
+# 8192 (four channel passes), a large mean (against float64 from the same
+# statistics) and operands that are not 16-byte aligned (scalar accesses)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("with_tb", [False, True], ids=["plain", "tb"])
-@pytest.mark.parametrize("shape,groups", [
-    ((16, 64, 64, 128), 32), ((16, 32, 32, 384), 32), ((16, 8, 8, 512), 32),
-    ((4, 16, 16, 96), 32), ((2, 5, 5, 48), 16), ((1, 3, 7, 30), 30),
-    ((2, 4, 4, 8192), 16),
+@pytest.mark.parametrize("shape,groups,case", [
+    ((16, 64, 64, 128), 32, ""), ((16, 32, 32, 384), 32, ""), ((16, 8, 8, 512), 32, ""),
+    ((4, 16, 16, 96), 32, ""), ((2, 5, 5, 48), 16, ""), ((1, 3, 7, 30), 30, ""),
+    ((2, 4, 4, 8192), 16, ""), ((8, 64, 64, 384), 32, ""), ((8, 16, 16, 256), 32, ""),
+    ((4, 32, 32, 256), 32, "mean1000"), ((4, 16, 16, 64), 32, "unaligned"),
 ])
-def test_gn_silu_bwd_kernel_matches_plain(card, shape, groups, with_tb, dtype):
-    x, s, b, g, eps, tb = _gn_args(shape, groups, with_tb, dtype, card)
+def test_gn_silu_bwd_kernel_matches_plain(card, shape, groups, case, with_tb, dtype):
+    x, s, b, g, eps, tb = _gn_args(shape, groups, with_tb, dtype, card,
+                                   mean=1000.0 if case == "mean1000" else 0.0)
     _, mean, rstd = tfn.gn_silu_reference(x, s, b, g, eps, tb)
     dy = torch.randn(shape, generator=torch.Generator(card).manual_seed(3),
                      device=card).to(dtype)
-    before, before_dtb = tfn.bwd_launches, tfn.bwd_dtb_launches
+    if case == "unaligned":
+        x, dy = _unaligned(x), _unaligned(dy)
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    plan = tfn._gn_bwd_plan(shape[0], shape[1] * shape[2], shape[3], groups, dtype)
+
+    def counts():
+        return (tfn.bwd_launches, tfn.bwd_dtb_launches, tfn.bwd_smem_launches,
+                tfn.bwd_reread_launches)
+
+    before = counts()
     got = tfn.gn_silu_bwd(x, s, b, mean, rstd, dy, g, tb)
     torch.cuda.synchronize()
-    assert tfn.bwd_launches == before + 1
-    assert tfn.bwd_dtb_launches == before_dtb + int(with_tb)
-    want = tfn.gn_silu_bwd_reference(x, s, b, mean, rstd, dy, g, tb)
+    assert tuple(a - c for a, c in zip(counts(), before)) == (
+        1, int(with_tb), int(plan[2]), int(not plan[2]))
+    if case == "mean1000":
+        want = tfn.gn_silu_bwd_reference(x.double(), s.double(), b.double(), mean, rstd,
+                                         dy.double(), g, None if tb is None else tb.double())
+    else:
+        want = tfn.gn_silu_bwd_reference(x, s, b, mean, rstd, dy, g, tb)
     assert got[0].dtype == dtype and (got[3] is None) == (not with_tb)
     for i, (a, w) in enumerate(zip(got, want)):
         if w is not None:
-            assert a.dtype == w.dtype
+            assert a.dtype == (dtype if i == 0 else torch.float32)
             assert _scaled_err(a, w) <= BWD_TOL[dtype if i == 0 else torch.float32], i
+    # no atomics: the same call gives the same bits
+    again = tfn.gn_silu_bwd(x, s, b, mean, rstd, dy, g, tb)
+    assert all(a is None and c is None or torch.equal(a, c) for a, c in zip(again, got))
     if with_tb:  # without dtb: the same dx, dgamma, dbeta
         no = tfn.gn_silu_bwd(x, s, b, mean, rstd, dy, g, tb, want_dtb=False)
         assert no[3] is None and all(torch.equal(a, c) for a, c in zip(no[:3], got[:3]))
@@ -166,7 +196,7 @@ def test_flash_bwd_kernels_match_plain(card, shape, dtype):
     dk, dv = tfa.flash_attn_bwd_dkv(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
     assert (tfa.bwd_dq_launches, tfa.bwd_dkv_launches) == (b_dq + 1, b_dkv + 1)
-    got, want = _variant_delta(variants, dtype, 0, 1)
+    got, want = _variant_delta(variants, dtype, 0, 1, 1)
     assert got == want
     want = (tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse, delta),
             *tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse, delta))
@@ -177,29 +207,26 @@ def test_flash_bwd_kernels_match_plain(card, shape, dtype):
 
 def test_flash_tensor_core_kernels_take_unaligned_operands(card):
     """bf16 operands that are contiguous but not 16-byte aligned take the
-    tensor-core kernels' 2-byte copies."""
+    tensor-core kernels' 2-byte copies (forward, dQ and dK/dV)."""
     shape = (4, 100, 64)
     rng = np.random.default_rng(8)
-
-    def unaligned():
-        buf = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16, device=card)
-        out = buf[1:].view(shape)
-        out.copy_(torch.from_numpy(rng.normal(size=shape).astype(np.float32)))
-        return out
-
-    q, k, v, do = (unaligned() for _ in range(4))
+    q, k, v, do = (_unaligned(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                              .to(card, torch.bfloat16)) for _ in range(4))
     assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v, do))
     variants = _variant_counts()
     o, lse = tfa.flash_attn_fwd(q, k, v)
     o0, lse0 = tfa.flash_attn_reference(q, k, v)
     delta = (do.float() * o0.float()).sum(-1)
+    dq = tfa.flash_attn_bwd_dq(q, k, v, do, lse0, delta)
     dk, dv = tfa.flash_attn_bwd_dkv(q, k, v, do, lse0, delta)
     torch.cuda.synchronize()
-    assert _variant_delta(variants, torch.bfloat16, 1, 1)[0] == (1, 0, 1, 0)
+    assert _variant_delta(variants, torch.bfloat16, 1, 1, 1)[0] == (1, 0, 1, 0, 1, 0)
     atol, rtol = TOL[torch.bfloat16]
     torch.testing.assert_close(o.float(), o0.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, lse0, atol=1e-4, rtol=1e-5)
-    for a, w in zip((dk, dv), tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta)):
+    want = (tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse0, delta),
+            *tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta))
+    for a, w in zip((dq, dk, dv), want):
         assert _scaled_err(a, w) <= BWD_TOL[torch.bfloat16]
 
 

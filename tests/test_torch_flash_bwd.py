@@ -9,8 +9,8 @@ log and P = exp(s * scale - LSE)), the saved-nothing inference route and
 the wrapper's checks.  The CUDA kernels are held against the plain
 versions on a card in tests/test_torch_cuda.py; here a plain-torch model of
 the bf16 tensor-core kernels' roundings is held against the plain versions
-at chip_smoke.py's bf16 bars, so the bar is known to hold before the card
-sees the kernels."""
+at chip_smoke.py's bf16 bars (dQ, dK, dV and the forward), so the bar is
+known to hold before the card sees the kernels."""
 
 import jax
 import jax.numpy as jnp
@@ -175,6 +175,16 @@ def _tc_dkv_model(q, k, v, do, lse, delta):
     return dk.bfloat16(), dv.bfloat16()
 
 
+def _tc_dq_model(q, k, v, do, lse, delta):
+    """The bf16 tensor-core dQ's roundings: fp32 S and dP, dS rounded to
+    bf16 before dQ = dS K (fp32 sums), dQ rounded to bf16."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    return (torch.matmul(ds.bfloat16().float(), kf) * scale).bfloat16()
+
+
 def _scaled_err(got, want):
     return float((got.float() - want.float()).abs().max()) / max(
         float(want.float().abs().max()), 1.0)
@@ -182,9 +192,9 @@ def _scaled_err(got, want):
 
 @pytest.mark.parametrize("shape", [(8, 256, 64), (8, 64, 64)])
 def test_tensor_core_roundings_meet_the_bf16_bars(shape):
-    """P (forward and dV) and dS (dK) rounded to bf16 keep O, dK and dV
-    within BWD_TOL["bfloat16"] x max(max |value|, 1) of the plain versions,
-    and the LSE within phase 3's 1e-4 abs + 1e-5 rel."""
+    """P (forward and dV) and dS (dQ and dK) rounded to bf16 keep O, dQ, dK
+    and dV within BWD_TOL["bfloat16"] x max(max |value|, 1) of the plain
+    versions, and the LSE within phase 3's 1e-4 abs + 1e-5 rel."""
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _qkv_do(shape, seed=shape[1] + 1))
     tol = BWD_TOL["bfloat16"]
     o0, lse0 = tfa.flash_attn_reference(q, k, v)
@@ -192,7 +202,9 @@ def test_tensor_core_roundings_meet_the_bf16_bars(shape):
     assert 0 < _scaled_err(o, o0) <= tol
     torch.testing.assert_close(lse, lse0, atol=1e-4, rtol=1e-5)
     delta = (do.float() * o0.float()).sum(-1)
-    want = tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta)
-    for got, w in zip(_tc_dkv_model(q, k, v, do, lse0, delta), want):
+    want = (tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse0, delta),
+            *tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta))
+    got = (_tc_dq_model(q, k, v, do, lse0, delta), *_tc_dkv_model(q, k, v, do, lse0, delta))
+    for got, w in zip(got, want):
         assert got.dtype == torch.bfloat16
         assert 0 < _scaled_err(got, w) <= tol

@@ -174,3 +174,135 @@ def test_backward_asks_for_the_layout_and_counts_copies():
         tfn.gn_silu_bwd(x, s, b, mean[:, :32], rstd, dy, g, tb)
     with pytest.raises(ValueError, match="dy"):
         tfn.gn_silu_bwd(x, s, b, mean, rstd, dy.bfloat16(), g, tb)
+
+
+# ------------------------------------------- the CUDA kernel's plan and sums
+
+def _step_gn_shapes():
+    """(H, W, C, groups) of the 45 GN+SiLU calls of one celeba64_attn
+    forward (its backward has the same), recorded from a batch-1 forward
+    on the CPU."""
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.utils.config import get_preset
+
+    calls = []
+    fwd = tfn.gn_silu_fwd
+
+    def rec(x, scale, bias, groups, *args, **kw):
+        calls.append((*x.shape[1:], groups))
+        return fwd(x, scale, bias, groups, *args, **kw)
+
+    torch.manual_seed(0)
+    model = UNetDenoiser(get_preset("celeba64_attn").model, device="cpu").eval()
+    tfn.gn_silu_fwd = rec
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, 64, 64, 3), torch.tensor([3]))
+    finally:
+        tfn.gn_silu_fwd = fwd
+    return calls
+
+
+_NARROW = [(2, 8, 8, 64, 32), (1, 8, 8, 128, 32), (2, 4, 4, 256, 32), (2, 6, 6, 96, 32),
+           (4, 16, 16, 96, 32), (2, 5, 3, 48, 16), (1, 3, 7, 30, 30), (2, 4, 4, 8192, 16)]
+
+
+def test_gn_bwd_plan_covers_every_shape():
+    """Every GN shape of a celeba64_attn train step at batch 128 (fp32 and
+    bf16) and the narrow test shapes get a route, a cluster of at most 16
+    whose chunks cover H*W, and a shared-memory layout a block can have;
+    a bf16 step's 45 launches split 13 in shared memory, 32 re-read (the
+    counts chip_smoke.py holds the card's run to)."""
+    from chip_smoke import GN_BWD_REREAD_PER_STEP, GN_BWD_SMEM_PER_STEP
+
+    step = _step_gn_shapes()
+    assert len(step) == 45
+    cases = [(128, h, w, c, g) for h, w, c, g in step] + _NARROW
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=dtype).element_size()
+        in_smem = 0
+        for B, H, W, C, G in cases:
+            cluster, chunk, smem = tfn._gn_bwd_plan(B, H * W, C, G, dtype)
+            assert cluster in (1, 2, 4, 8, 16) and chunk >= 1
+            assert chunk * cluster >= H * W and (chunk - 1) * cluster < H * W
+            tile, stages, nbytes = tfn._gn_bwd_smem(C, G, chunk, smem, item)
+            assert 1 <= tile <= chunk and stages >= (1 if smem else 2) and nbytes <= 232_448
+            if smem:
+                assert tile * stages >= chunk and nbytes <= 232_448 // 3
+            in_smem += smem and B == 128
+        if dtype == torch.bfloat16:
+            assert (in_smem, 45 - in_smem) == (GN_BWD_SMEM_PER_STEP, GN_BWD_REREAD_PER_STEP)
+
+
+def _kernel_order_bwd(x, s, b, mean, rstd, dy, groups, tb, plan, want_dtb):
+    """A plain model of the CUDA backward's fp32 arithmetic and order of
+    summation: per channel, each pixel lane's running sum over its pixels
+    of a chunk, the lanes in order, then the cluster's chunks (ranks) in
+    order; gamma * S summed per group channel by channel; dtb the same as
+    S1.  x (B, H, W, C) fp32, 4 channels per thread where C allows."""
+    cluster, chunk, _ = plan
+    B, H, W, C = x.shape
+    HW, cg = H * W, C // groups
+    V = 4 if C % 4 == 0 else 1
+    ppi = 256 // min(C // V, 256)
+    xf, dyf = x.reshape(B, HW, C), dy.reshape(B, HW, C)
+    d = (tb if tb is not None else torch.zeros(B, C)) - mean
+    sh, za = d * rstd, s * rstd
+    zc = d * za + b
+    xh = xf * rstd[:, None] + sh[:, None]
+    z = xf * za[:, None] + zc[:, None]
+    sg = torch.sigmoid(z)
+    dz = dyf * (sg + z * (sg - sg * sg))
+
+    def ordered_sum(v):  # (B, HW, C) -> (B, C): lanes within chunks, then ranks
+        total = torch.zeros(B, C)
+        for r in range(cluster):
+            part = torch.zeros(B, C)
+            rows = v[:, r * chunk:min((r + 1) * chunk, HW)]
+            for lane in range(ppi):
+                acc = torch.zeros(B, C)
+                for p in range(lane, rows.shape[1], ppi):
+                    acc = acc + rows[:, p]
+                part = part + acc
+            total = total + part
+        return total
+
+    s1, s2 = ordered_sum(dz), ordered_sum(dz * xh)
+    m1 = torch.zeros(B, groups)
+    m2 = torch.zeros(B, groups)
+    for c in range(cg):
+        m1 = m1 + (s * s1)[:, c::cg]
+        m2 = m2 + (s * s2)[:, c::cg]
+    inv_n = 1.0 / (HW * cg)
+    m1r = (m1 * inv_n).repeat_interleave(cg, -1) * rstd
+    m2r = (m2 * inv_n).repeat_interleave(cg, -1) * rstd
+    du = dz * za[:, None] - xh * m2r[:, None] - m1r[:, None]
+    dtb = ordered_sum(du) if want_dtb else None
+    return du.reshape(x.shape), s2.sum(0), s1.sum(0), dtb
+
+
+@pytest.mark.parametrize("shape,groups,mean", [
+    ((2, 16, 16, 64), 32, 0.3), ((2, 6, 6, 96), 32, 0.3), ((1, 3, 7, 30), 30, 0.3),
+    ((2, 16, 16, 64), 32, 1000.0),
+])
+def test_kernel_summation_order_matches_the_backward(shape, groups, mean):
+    """Per-chunk per-channel partials summed across ranks in a fixed order,
+    then per group: in fp32 within chip_smoke.py's fp32 bar (1e-4 of the
+    largest |value|) of the plain backward and, at mean 1000, of the
+    float64 backward from the same statistics."""
+    from chip_smoke import BWD_TOL
+
+    x, s, b, g, tb, dy = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                          for a in _inputs(shape, groups, seed=7))
+    x = x - 0.3 + mean
+    _, mu, rs = tfn.gn_silu_reference(x, s, b, g, 1e-6, tb)
+    plan = tfn._gn_bwd_plan(shape[0], shape[1] * shape[2], shape[3], g, torch.float32)
+    got = _kernel_order_bwd(x, s, b, mu, rs, dy, g, tb, plan, True)
+    wants = [tfn.gn_silu_bwd_reference(x, s, b, mu, rs, dy, g, tb)]
+    if mean > 1:
+        wants.append(tfn.gn_silu_bwd_reference(x.double(), s.double(), b.double(), mu, rs,
+                                               dy.double(), g, tb.double()))
+    for want in wants:
+        for a, w in zip(got, want):
+            err = float((a.double() - w.double()).abs().max())
+            assert err <= BWD_TOL["float32"] * max(float(w.abs().max()), 1.0)
