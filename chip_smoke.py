@@ -17,10 +17,13 @@ package), in phases; any failure exits non-zero before the final line.
               and a ragged attention length (N = 100) at head dims 64, 32,
               40 and 128; every bf16 flash forward, dQ and dK/dV call must
               reach the tensor-core kernel and every fp32 one the FMA
-              kernel; the GN backward at C = 96, a large mean, odd C and
-              unaligned operands too, on the route its plan names, and bit-
-              equal on a second identical call; the plain backward versions
-              once against float64 autograd of the plain forwards
+              kernel; the GN forward and backward at C = 96, a large mean,
+              odd C and unaligned operands too, on the route their plans
+              name, and bit-equal on a second identical call; the GN forward
+              at mean 1000 at 64x64x384 on both routes and on every plan
+              (cluster 1-16, resident and re-read) at one shape; the plain
+              backward versions once against float64 autograd of the plain
+              forwards
 4. unet       celeba64_attn at full width (31,312,131 params, seeded random
               weights): one forward on the kernels and one on the plain
               versions, on the card
@@ -28,7 +31,9 @@ package), in phases; any failure exits non-zero before the final line.
               weights: /healthz, two concurrent eta=0 requests that must
               coalesce and equal their solo re-runs, one eta=0.5 request,
               /metrics; the kernels' launch counts must be 45 and 5 per
-              U-Net forward, the 5 on the tensor-core flash forward
+              U-Net forward (the GN forward's 25 at batch 16 and 33 at 8
+              with the chunk resident in shared memory, the rest re-read),
+              the 5 on the tensor-core flash forward
 6. train      celeba64_attn with its preset TrainConfig at batch 128 on the
               port's synthetic blob faces: (a) from the same weights and
               injected (t, noise), dropout off, one step on the kernels and
@@ -36,9 +41,10 @@ package), in phases; any failure exits non-zero before the final line.
               norm, updated params), the fp32 step on the FMA flash kernels
               and the bf16 step on the tensor-core ones; (b) train_one_epoch
               for 20 steps with dropout on, launches exactly 45/45/5/5/5 per
-              step (22 of the GN backward launches with the time-bias
-              gradient, 13 keeping their chunk in shared memory and 32
-              re-reading it, as the plan says; the flash forward's, dQ's and
+              step (the GN forward's 45 re-reading their chunk; 22 of the
+              GN backward launches with the time-bias gradient, 13 keeping
+              their chunk in shared memory and 32 re-reading it, as the
+              plans say; the flash forward's, dQ's and
               dK/dV's 5 all on the tensor cores, none on FMA); (c) the
               step's wall and device time, idle share, top kernels and
               peak memory
@@ -46,7 +52,8 @@ package), in phases; any failure exits non-zero before the final line.
               U-Net forward beside its bound, its plain version and the
               PyTorch yardstick (timed here only), request latency and
               forwards per second; the GN backward at its largest train-
-              step shape on every cluster size and route beside the plan's
+              step shape and the GN forward at 64x64x384 and 64x64x128
+              (batch 128) on every cluster size and route beside the plan's
               pick
 
 Before the final line it prints one ``{"kernels": [...]}`` JSON line and the
@@ -86,11 +93,19 @@ GN_BWD_REREAD_PER_STEP = GN_LAUNCHES_PER_FORWARD - GN_BWD_SMEM_PER_STEP
 BATCH = 16
 TRAIN_BATCH = 128
 TRAIN_STEPS = 20
+# GN forward launches per bf16 U-Net forward that keep their chunk in shared
+# memory, by batch, from _gn_fwd_plan over the forward's 45 shapes (the
+# rest re-read it): none at the train batch; at the serving batches
+# (coalesced 16, solo 8) the shapes whose grid fills at most half the SMs
+GN_FWD_SMEM_PER_FORWARD = {TRAIN_BATCH: 0, BATCH: 25, BATCH // 2: 33}
 
 KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_attn_fwd", "flash_attn_bwd_dq",
            "flash_attn_bwd_dkv")
 #: launches of each kernel in one train step (one forward and its backward)
 LAUNCHES_PER_STEP = {"gn_silu_fwd": GN_LAUNCHES_PER_FORWARD,
+                     "gn_silu_fwd_smem": GN_FWD_SMEM_PER_FORWARD[TRAIN_BATCH],
+                     "gn_silu_fwd_reread": (GN_LAUNCHES_PER_FORWARD
+                                            - GN_FWD_SMEM_PER_FORWARD[TRAIN_BATCH]),
                      "gn_silu_bwd": GN_LAUNCHES_PER_FORWARD,
                      "gn_silu_bwd_dtb": GN_DTB_LAUNCHES_PER_STEP,
                      "gn_silu_bwd_smem": GN_BWD_SMEM_PER_STEP,
@@ -283,6 +298,7 @@ def reset_counts():
     """Set every launch and layout-copy count to 0."""
     fn, fa = _kernel_modules()
     fn.launches = fn.bwd_launches = fn.bwd_dtb_launches = fn.bwd_layout_copies = 0
+    fn.fwd_smem_launches = fn.fwd_reread_launches = 0
     fn.bwd_smem_launches = fn.bwd_reread_launches = 0
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = fa.bwd_layout_copies = 0
     fa.fwd_tc_launches = fa.fwd_fma_launches = 0
@@ -292,7 +308,8 @@ def reset_counts():
 
 def read_counts():
     fn, fa = _kernel_modules()
-    return {"gn_silu_fwd": fn.launches, "gn_silu_bwd": fn.bwd_launches,
+    return {"gn_silu_fwd": fn.launches, "gn_silu_fwd_smem": fn.fwd_smem_launches,
+            "gn_silu_fwd_reread": fn.fwd_reread_launches, "gn_silu_bwd": fn.bwd_launches,
             "gn_silu_bwd_dtb": fn.bwd_dtb_launches,
             "gn_silu_bwd_smem": fn.bwd_smem_launches,
             "gn_silu_bwd_reread": fn.bwd_reread_launches,
@@ -353,7 +370,24 @@ def main_path_shapes(model):
         raise AssertionError(f"forward made {len(gn)} GN and {len(fl)} flash "
                              f"calls (of {len(calls)}), expected "
                              f"{GN_LAUNCHES_PER_FORWARD} and {FLASH_LAUNCHES_PER_FORWARD}")
+    for batch in GN_FWD_SMEM_PER_FORWARD:
+        check_fwd_routes(gn, batch)
     return gn, fl
+
+
+def check_fwd_routes(gn_calls, batch):
+    """Raise unless the GN forward plan keeps GN_FWD_SMEM_PER_FORWARD[batch]
+    of a forward's recorded calls, taken at ``batch``, in shared memory."""
+    import torch
+
+    smem = sum(_gn_fwd_plan((c[0], (batch,) + c[1][1:], c[2]), torch.bfloat16)[2]
+               for c in gn_calls)
+    if smem != GN_FWD_SMEM_PER_FORWARD[batch]:
+        raise AssertionError(f"the GN forward plan puts {smem} of a forward's launches at "
+                             f"batch {batch} in shared memory, expected "
+                             f"{GN_FWD_SMEM_PER_FORWARD[batch]}")
+    log(f"[kernels] GN forward routes by the plan at batch {batch}: {smem} in shared "
+        f"memory, {len(gn_calls) - smem} re-read")
 
 
 def train_path_shapes(model):
@@ -397,6 +431,13 @@ def _gn_plan(call, dtype):
     fn = _kernel_modules()[0]
     B, H, W, C = call[1]
     return fn._gn_bwd_plan(B, H * W, C, call[2], dtype)
+
+
+def _gn_fwd_plan(call, dtype):
+    """The GN forward plan (cluster, chunk, in_smem) of a recorded call."""
+    fn = _kernel_modules()[0]
+    B, H, W, C = call[1]
+    return fn._gn_fwd_plan(B, H * W, C, call[2], dtype)
 
 
 def gn_inputs(shape, groups, with_tb, dtype, gen, mean=0.0):
@@ -484,6 +525,90 @@ def check_scaled(name, got, want, tol) -> float:
         raise AssertionError(f"{name}: max |err| {err:.3e} beyond {tol} x "
                              f"{scale:.3e} (or non-finite output)")
     return err
+
+
+def gn_fwd_checked(args, plan=None):
+    """``gn_silu_fwd(*args)`` (or, given ``plan``, the kernel on that
+    plan), raising unless it launched once on the route the plan names and
+    a second identical call gives the same bits (no atomics)."""
+    import torch
+
+    fn = _kernel_modules()[0]
+    x = args[0]
+    call = ("gn", tuple(x.shape), args[3])
+    want = plan or _gn_fwd_plan(call, x.dtype)
+    run = (lambda: fn.gn_silu_fwd(*args)) if plan is None else (
+        lambda: fn._gn_fwd_launch(*args, plan))
+    before = (fn.fwd_smem_launches, fn.fwd_reread_launches)
+    got = run()
+    routes = (fn.fwd_smem_launches - before[0], fn.fwd_reread_launches - before[1])
+    if routes != (int(want[2]), int(not want[2])):
+        raise AssertionError(f"gn_silu_fwd {tuple(x.shape)}: (smem, re-read) launches "
+                             f"{routes}, the plan {want}")
+    again = run()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"gn_silu_fwd {tuple(x.shape)} plan {want}: two identical "
+                             "calls differ")
+    return got
+
+
+#: GN forward cases beyond the main paths' shapes: (shape, groups, case)
+GN_FWD_EXTRA = [((BATCH, 16, 16, 96), 32, ""), ((4, 3, 7, 30), 30, ""),
+                ((BATCH, 16, 16, 64), 32, "unaligned")]
+#: the shape at which every forward plan is held against the plain version
+GN_FWD_PLANS_SHAPE = (4, 16, 16, 128)
+
+
+def check_gn_fwd_extra(gen):
+    """The GN forward at C = 96, odd C, unaligned operands; mean 1000 at
+    64x64x384 against float64 on both routes in bf16 (fp32's chunk does
+    not fit a block there) and re-read in fp32; every plan (cluster 1-16,
+    resident where the chunk fits a block, and re-read) at one shape."""
+    import torch
+
+    fn = _kernel_modules()[0]
+
+    def check(label, args, plan=None, mean1000=False):
+        dn = str(args[0].dtype).split(".")[1]
+        y, mu, rs = gn_fwd_checked(args, plan)
+        x, s, b, g, eps, tb = args
+        if mean1000:
+            y0, mu0, rs0 = fn.gn_silu_reference(x.double(), s.double(), b.double(), g, eps,
+                                                None if tb is None else tb.double())
+            tol = (1e-3, 1e-3) if dn == "float32" else TOL[dn]
+        else:
+            y0, mu0, rs0 = fn.gn_silu_reference(*args)
+            tol = TOL[dn]
+        torch.cuda.synchronize()
+        e = check_close(f"gn_silu {label}", y, y0, *tol)
+        em = check_close(f"gn mean {label}", mu, mu0, 1e-5, 1e-5)
+        er = check_close(f"gn rstd {label}", rs, rs0, 1e-5, 1e-4)
+        plan = plan or _gn_fwd_plan(("gn", tuple(x.shape), g), x.dtype)
+        log(f"[kernels] gn_silu_fwd {label} {dn} plan {plan}: max|err| {e:.2e} (mean "
+            f"{em:.2e}, rstd {er:.2e}); a second call bit-equal")
+
+    for shape, groups, case in GN_FWD_EXTRA:
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_tb in (False, True):
+                args = gn_inputs(shape, groups, with_tb, dtype, gen)
+                if case == "unaligned":
+                    args = (_unaligned(args[0]),) + args[1:]
+                check(f"{shape} G={groups} {case or 'main'} tb={with_tb}", args)
+    shape = (BATCH, 64, 64, 384)
+    for dtype, routes in ((torch.bfloat16, (True, False)), (torch.float32, (False,))):
+        args = gn_inputs(shape, 32, True, dtype, gen, mean=1000.0)
+        for resident in routes:
+            check(f"{shape} mean 1000 vs float64 resident={resident}", args,
+                  (16, 64 * 64 // 16, resident), mean1000=True)
+    B, H, W, C = GN_FWD_PLANS_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        args = gn_inputs(GN_FWD_PLANS_SHAPE, 32, True, dtype, gen)
+        for cluster in (1, 2, 4, 8, 16):
+            chunk = -(-H * W // cluster)
+            for resident in (True, False):
+                nbytes = fn._gn_fwd_smem(C, 32, chunk, resident, args[0].element_size())[2]
+                if nbytes <= fn._SMEM_MAX:
+                    check(f"{GN_FWD_PLANS_SHAPE} every plan", args, (cluster, chunk, resident))
 
 
 #: GN backward cases beyond the train step's shapes: (shape, groups, case)
@@ -574,16 +699,17 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
             dn = str(dtype).split(".")[1]
             for with_tb in (False, True):
                 args = gn_inputs(shape, groups, with_tb, dtype, gen)
-                y, mu, rs = fn.gn_silu_fwd(*args)
+                y, mu, rs = gn_fwd_checked(args)
                 y0, mu0, rs0 = fn.gn_silu_reference(*args)
                 torch.cuda.synchronize()
                 e = check_close(f"gn_silu {shape} {dn} tb={with_tb}", y, y0, *TOL[dn])
-                check_close("gn mean", mu, mu0, 1e-5, 1e-5)
-                check_close("gn rstd", rs, rs0, 1e-5, 1e-4)
+                em = check_close(f"gn mean {shape} {dn} tb={with_tb}", mu, mu0, 1e-5, 1e-5)
+                er = check_close(f"gn rstd {shape} {dn} tb={with_tb}", rs, rs0, 1e-5, 1e-4)
                 if dtype == torch.bfloat16:
                     worst["gn_silu_fwd"] = max(worst["gn_silu_fwd"], e)
-                log(f"[kernels] gn_silu_fwd {shape} G={groups} {dn} tb={with_tb}: "
-                    f"max|err| {e:.2e}")
+                log(f"[kernels] gn_silu_fwd {shape} G={groups} {dn} tb={with_tb} plan "
+                    f"{_gn_fwd_plan(('gn', shape, groups), dtype)}: max|err| {e:.2e} (mean "
+                    f"{em:.2e}, rstd {er:.2e}); a second call bit-equal")
     # large-mean input: the two-pass variance against a float64 reference
     args = gn_inputs((BATCH, 32, 32, 256), 32, True, torch.float32, gen, mean=1000.0)
     y = fn.gn_silu_fwd(*args)[0]
@@ -593,6 +719,7 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
     e = check_close("gn_silu large-mean vs float64", y, y64, 1e-3, 1e-3)
     log(f"[kernels] gn_silu_fwd large-mean (mean 1000, std 2) fp32 vs float64: "
         f"max|err| {e:.2e}")
+    check_gn_fwd_extra(gen)
 
     # the GN backward at every train-step shape, with and without dtb, then
     # C = 96, a large mean (against float64 from the same statistics),
@@ -766,8 +893,8 @@ def phase_serving(preset, model):
         }, ckpt)
         svc = SamplerService.from_checkpoint(ckpt, device="cuda")
         svc.COALESCE_WINDOW_S = 0.25  # wide, so the two requests surely meet
-        forwards = [0]
-        svc.model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        batches = []  # the batch of every U-Net forward
+        svc.model.register_forward_hook(lambda _m, inp, _o: batches.append(inp[0].shape[0]))
         server = make_server(svc, "127.0.0.1", 0)
         th = threading.Thread(target=server.serve_forever, daemon=True)
         th.start()
@@ -792,7 +919,7 @@ def phase_serving(preset, model):
 
             # launch counts: reset just before driving the path, read just after
             reset_counts()
-            forwards[0] = 0
+            batches.clear()
             before = svc.metrics()["multi_request_batches"]
             with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
                 futs = {s: ex.submit(sample, s) for s in (1, 2)}
@@ -805,7 +932,7 @@ def phase_serving(preset, model):
                 solo, _ = sample(s)
                 solo_err = max(solo_err, float(np.abs(solo - merged[s]).max()))
             eta_x, _ = sample(3, eta=0.5)
-            n_fwd = forwards[0]
+            n_fwd = len(batches)
             counts = read_counts()
             launches = {"gn_silu_fwd": counts["gn_silu_fwd"],
                         "flash_attn_fwd": counts["flash_attn_fwd"]}
@@ -830,10 +957,19 @@ def phase_serving(preset, model):
                     or launches["flash_attn_fwd"] != FLASH_LAUNCHES_PER_FORWARD * n_fwd
                     or n_fwd == 0):
                 raise AssertionError(f"launches {launches} after {n_fwd} forwards")
-            log(f"[serving] {n_fwd} U-Net forwards; launches {launches} = "
-                f"{GN_LAUNCHES_PER_FORWARD} and {FLASH_LAUNCHES_PER_FORWARD} per forward "
-                f"(flash forward on the tensor cores {counts['flash_attn_fwd_tc']}, "
-                f"on FMA {counts['flash_attn_fwd_fma']})")
+            by_batch = {b: batches.count(b) for b in sorted(set(batches))}
+            smem = sum(GN_FWD_SMEM_PER_FORWARD.get(b, -1) * n for b, n in by_batch.items())
+            routes = (counts["gn_silu_fwd_smem"], counts["gn_silu_fwd_reread"])
+            if routes != (smem, GN_LAUNCHES_PER_FORWARD * n_fwd - smem):
+                raise AssertionError(f"GN forward (smem, re-read) launches {routes} after "
+                                     f"forwards {by_batch} by batch")
+            launches.update(gn_silu_fwd_smem=routes[0], gn_silu_fwd_reread=routes[1])
+            log(f"[serving] {n_fwd} U-Net forwards (by batch {by_batch}); launches "
+                f"{launches} = {GN_LAUNCHES_PER_FORWARD} (in shared memory "
+                f"{GN_FWD_SMEM_PER_FORWARD[BATCH]} at batch {BATCH}, "
+                f"{GN_FWD_SMEM_PER_FORWARD[BATCH // 2]} at {BATCH // 2}) and "
+                f"{FLASH_LAUNCHES_PER_FORWARD} per forward (flash forward on the tensor cores "
+                f"{counts['flash_attn_fwd_tc']}, on FMA {counts['flash_attn_fwd_fma']})")
             result.update(launches=launches, forwards=n_fwd, solo_err=solo_err)
 
             # request latency at n=16, 50 steps (warm), default window
@@ -1002,6 +1138,42 @@ def gn_bwd_routes():
         f"shared memory, r = re-read), device ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
         + f"; the plan picks {pick[0]}{'s' if pick[2] else 'r'}")
+    return out
+
+
+#: the GN forward shapes of the route table (batch 128, bf16, time bias):
+#: the one the plan re-reads and the one with most of a step's bytes
+GN_FWD_ROUTE_SHAPES = [(TRAIN_BATCH, 64, 64, 384), (TRAIN_BATCH, 64, 64, 128)]
+
+
+def gn_fwd_routes():
+    """Device ms of the GN forward at each of GN_FWD_ROUTE_SHAPES (bf16,
+    with the time bias) on every cluster size, re-read and, where the chunk
+    fits a block, resident, beside the plan's pick."""
+    import torch
+
+    fn = _kernel_modules()[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for shape in GN_FWD_ROUTE_SHAPES:
+        B, H, W, C = shape
+        x, s, b, g, eps, tb = gn_inputs(shape, 32, True, torch.bfloat16, gen)
+        row = {}
+        for cluster in (1, 2, 4, 8, 16):
+            chunk = -(-H * W // cluster)
+            for resident in (False, True):
+                if fn._gn_fwd_smem(C, g, chunk, resident, 2)[2] > fn._SMEM_MAX:
+                    continue
+                plan = (cluster, chunk, resident)
+                row[f"{cluster}{'s' if resident else 'r'}"] = device_ms(
+                    lambda: fn._gn_fwd_launch(x, s, b, g, eps, tb, plan))[0]
+        pick = fn._gn_fwd_plan(B, H * W, C, g, torch.bfloat16)
+        row["pick"] = f"{pick[0]}{'s' if pick[2] else 'r'}"
+        out["x".join(map(str, shape))] = row
+        log(f"[times] gn_silu_fwd {shape} bf16 by plan (cluster, s = chunk resident in "
+            f"shared memory, r = re-read), device ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items() if k != "pick")
+            + f"; the plan picks {row['pick']}")
     return out
 
 
@@ -1280,6 +1452,7 @@ def main() -> int:
     tot, fwd = phase_times(model, gn_calls, fl_calls)
     ttot = kernel_totals(train_calls, f"train step (batch {TRAIN_BATCH})")
     routes = gn_bwd_routes()
+    fwd_routes = gn_fwd_routes()
 
     kernels = []
     for k in KERNELS:
@@ -1303,7 +1476,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "train_step_b128_bf16": train,
                     "train_parity": parity, "unet_forward_b16_bf16": fwd,
                     "latency_s_n16_steps50": serving["latency_s_n16_steps50"],
-                    "gn_bwd_routes_ms": routes,
+                    "gn_bwd_routes_ms": routes, "gn_fwd_routes_ms": fwd_routes,
                     "profiler_retraces": TRACE_RETRIES, "card": smi}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,15 +13,18 @@ recomputes the normalization from them.  Where no gradient is needed they
 call ``gn_silu_fwd`` alone and save nothing.
 
 Semantics are those of the fused TPU path: the time bias is added in fp32
-inside the normalization, statistics are fp32 with a two-pass variance,
-and the output is in ``x.dtype``; dx comes back in ``x.dtype``, dgamma,
-dbeta and the time-bias gradient in fp32.  The kernels take any C with
-``C % num_groups == 0`` (no lane-multiple gate as on the TPU).
+inside the normalization, statistics are fp32 (the plain version's by a
+two-pass variance, the forward kernel's by one pass over values shifted by
+each channel's first value, folded in fp64: both exact where E[u^2] - mu^2
+cancels), and the output is in ``x.dtype``; dx comes back in ``x.dtype``,
+dgamma, dbeta and the time-bias gradient in fp32.  The kernels take any C
+with ``C % num_groups == 0`` (no lane-multiple gate as on the TPU).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,11 +33,16 @@ from . import cuda_build
 
 __all__ = ["gn_silu_reference", "gn_silu_fwd", "gn_silu_bwd_reference",
            "gn_silu_bwd", "gn_silu", "gn_silu_bias", "launches",
-           "bwd_launches", "bwd_dtb_launches", "bwd_smem_launches",
-           "bwd_reread_launches", "bwd_layout_copies"]
+           "fwd_smem_launches", "fwd_reread_launches", "bwd_launches",
+           "bwd_dtb_launches", "bwd_smem_launches", "bwd_reread_launches",
+           "bwd_layout_copies"]
 
-#: Number of times :func:`gn_silu_fwd` launched the CUDA kernel.
+#: Number of times :func:`gn_silu_fwd` launched the CUDA kernel, and how
+#: many of those launches kept the chunk of x in shared memory or re-read
+#: it (the plan's route).
 launches = 0
+fwd_smem_launches = 0
+fwd_reread_launches = 0
 #: Number of times :func:`gn_silu_bwd` launched the CUDA kernel, how many
 #: of those launches also wrote the time-bias gradient, and how many kept
 #: the chunk of x and dy in shared memory or re-read it (the plan's route).
@@ -157,7 +165,7 @@ def _kernel(name: str):
         fn = getattr(cuda_build.library("gn_silu"), name)
         fn.restype = ctypes.c_int
         if name == "gn_silu_fwd":
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
@@ -166,54 +174,78 @@ def _kernel(name: str):
     return fn
 
 
-def gn_silu_fwd(
-    x: torch.Tensor,
-    scale: torch.Tensor,
-    bias: torch.Tensor,
-    num_groups: int,
-    eps: float = 1e-6,
-    time_bias: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """GroupNorm+SiLU(+time bias) forward on the CUDA kernel (CUDA tensors)
-    or the plain version (CPU tensors).  Same arguments and outputs as
-    :func:`gn_silu_reference`; x must be contiguous NHWC."""
-    global launches
-    _check(x, scale, bias, num_groups, time_bias)
-    if x.device.type == "cpu":
-        return gn_silu_reference(x, scale, bias, num_groups, eps, time_bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"gn_silu_fwd runs on cuda or cpu, not {x.device}")
-    B, H, W, C = x.shape
-    fn = _kernel("gn_silu_fwd")
-    y = torch.empty_like(x)
-    mean = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    rstd = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                None if time_bias is None else time_bias.data_ptr(),
-                y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                B, H * W, C, num_groups, float(eps),
-                int(x.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"gn_silu_fwd kernel launch failed: cudaError {rc}")
-    launches += 1
-    return y, mean, rstd
-
-
-# The backward kernel's block size, widest channel pass, tile and ring
-# (kBwdThreads, kMaxPass, kStageBytes, kRingStages in csrc/gn_silu.cu), an
-# H100's SMs and the shared memory one of its blocks may use.
-_BWD_THREADS = 256
-_BWD_MAX_PASS = _BWD_THREADS * 4
+# The GN kernels' block size, the backward's widest channel pass, their
+# tiles and ring (kFwdThreads, kMaxPass, kFwdStageBytes, kStageBytes,
+# kRingStages in csrc/gn_silu.cu), an H100's SMs and the shared memory one
+# of its blocks may use.
+_GN_THREADS = 256
+_BWD_MAX_PASS = _GN_THREADS * 4
 _STAGE_BYTES = 16384
 _RING_STAGES = 3
 _SMS = 132
 _SMEM_MAX = 232_448
 # A block asking at most this much leaves room for three on its SM (the
-# kernel's __launch_bounds__).
+# kernels' __launch_bounds__).
 _SMEM_PER_BLOCK = _SMEM_MAX // 3
 _MAX_CLUSTER = 16
+# The forward's plan splits an image no finer than this many bytes of x
+# per block.
+_FWD_MIN_CHUNK_BYTES = 65_536
+
+
+def _grow_cluster(B: int, HW: int, split=lambda cs: True) -> Tuple[int, int]:
+    """``(cluster, chunk)``: the cluster doubles while the card has fewer
+    than one and a half blocks per SM to run and ``split(cluster)`` allows
+    halving the chunk, up to 16 (or H*W); each block owns ``chunk``
+    pixels."""
+    cs = 1
+    while cs < _MAX_CLUSTER and cs < HW and B * cs < _SMS + _SMS // 2 and split(cs):
+        cs *= 2
+    return cs, -(-HW // cs)
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_fwd_smem(C: int, G: int, chunk: int, in_smem: bool, itemsize: int
+                 ) -> Tuple[int, int, int]:
+    """``(tile, stages, bytes)``: the shared-memory layout of one forward
+    block (``fwd_smem`` in ``csrc/gn_silu.cu``).  Scratch sized for 16-byte
+    columns (two fp64 per-group sums, two pass-wide fp32 reduction buffers,
+    two fp32 per-channel partials, the pass's fp32 shifts) rounded up to 16
+    bytes, then ``stages`` tiles of ``tile`` pixels of x (a ring, or every
+    tile of the chunk when ``in_smem``)."""
+    row = C * itemsize
+    tile = max(1, min(chunk, _STAGE_BYTES // row))
+    width = _GN_THREADS * (16 // itemsize)
+    scratch = -(-(16 * G + 4 * (2 * width + 3 * min(C, width))) // 16) * 16
+    stages = -(-chunk // tile) if in_smem else _RING_STAGES
+    while not in_smem and stages > 2 and scratch + stages * tile * row > _SMEM_MAX:
+        stages -= 1
+    return tile, stages, scratch + stages * tile * row
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_fwd_plan(B: int, HW: int, C: int, G: int, dtype: torch.dtype
+                 ) -> Tuple[int, int, bool]:
+    """``(cluster, chunk, in_smem)`` of the forward kernel for (B, HW, C)
+    NHWC input with G groups: ``cluster`` blocks per image (1, 2, 4, 8 or
+    16), each owning ``chunk`` pixels across all C channels, and whether
+    that chunk of x stays in shared memory between the statistics and the
+    apply sweep.
+
+    As the backward's plan, the cluster doubles until the card has one and
+    a half blocks per SM, but not past chunks of ``_FWD_MIN_CHUNK_BYTES``:
+    a block's fixed cost (the launch, the first tile's latency, the cluster
+    reduction) outweighs what a smaller chunk saves.  The chunk stays in
+    shared memory only on a grid of at most one block per two SMs, where
+    fetching the whole chunk at once pays; on a fuller grid the ring's
+    smaller blocks keep more of them in flight, and the apply sweep
+    re-reads the chunk (mostly from L2).  Both rules come from the route
+    tables of ``chip_smoke.py`` on an H100 at every main-path shape."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    image = HW * C * item
+    cs, chunk = _grow_cluster(B, HW, lambda cs: image // (2 * cs) >= _FWD_MIN_CHUNK_BYTES)
+    resident = B * cs <= _SMS // 2 and _gn_fwd_smem(C, G, chunk, True, item)[2] <= _SMEM_MAX
+    return cs, chunk, resident
 
 
 def _gn_bwd_smem(C: int, G: int, chunk: int, in_smem: bool, itemsize: int
@@ -246,11 +278,62 @@ def _gn_bwd_plan(B: int, HW: int, C: int, G: int, dtype: torch.dtype
     stays in shared memory if that still leaves room for three blocks
     per SM; else the second sweep re-reads it through the ring."""
     item = 2 if dtype == torch.bfloat16 else 4
-    cs = 1
-    while cs < _MAX_CLUSTER and cs < HW and B * cs < _SMS + _SMS // 2:
-        cs *= 2
-    chunk = -(-HW // cs)
+    cs, chunk = _grow_cluster(B, HW)
     return cs, chunk, _gn_bwd_smem(C, G, chunk, True, item)[2] <= _SMEM_PER_BLOCK
+
+
+def _gn_fwd_launch(x, scale, bias, num_groups, eps, time_bias, plan):
+    """Launch the forward kernel on checked CUDA tensors with ``plan``
+    (``(cluster, chunk, in_smem)``); returns (y, mean, rstd)."""
+    global launches, fwd_smem_launches, fwd_reread_launches
+    B, H, W, C = x.shape
+    cluster, chunk, in_smem = plan
+    fn = _kernel("gn_silu_fwd")
+    y = torch.empty_like(x)
+    mean = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                None if time_bias is None else time_bias.data_ptr(),
+                y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                B, H * W, C, num_groups, cluster, chunk, int(in_smem), float(eps),
+                int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"gn_silu_fwd kernel launch failed: cudaError {rc} "
+                           f"(plan {plan})")
+    launches += 1
+    if in_smem:
+        fwd_smem_launches += 1
+    else:
+        fwd_reread_launches += 1
+    return y, mean, rstd
+
+
+def gn_silu_fwd(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int,
+    eps: float = 1e-6,
+    time_bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GroupNorm+SiLU(+time bias) forward on the CUDA kernel (CUDA tensors)
+    or the plain version (CPU tensors).  Same arguments and outputs as
+    :func:`gn_silu_reference`; x must be contiguous NHWC.  The kernel takes
+    C up to about 50,000 channels at 16-bit and 25,000 at 32-bit (two pixel
+    rows and the per-channel sums live in shared memory); wider raises."""
+    _check(x, scale, bias, num_groups, time_bias)
+    if x.device.type == "cpu":
+        return gn_silu_reference(x, scale, bias, num_groups, eps, time_bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_fwd runs on cuda or cpu, not {x.device}")
+    B, H, W, C = x.shape
+    if _gn_fwd_smem(C, num_groups, 1, False, x.element_size())[2] > _SMEM_MAX:
+        raise ValueError(f"gn_silu_fwd: C={C} with {num_groups} groups needs more shared "
+                         "memory than a block has")
+    plan = _gn_fwd_plan(B, H * W, C, num_groups, x.dtype)
+    return _gn_fwd_launch(x, scale, bias, num_groups, eps, time_bias, plan)
 
 
 def _gn_bwd_launch(x, scale, bias, mean, rstd, dy, num_groups, time_bias, want_dtb,

@@ -54,25 +54,82 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 ])
 def test_gn_silu_kernel_matches_plain(card, shape, groups, with_tb, dtype):
     args = _gn_args(shape, groups, with_tb, dtype, card)
-    before = tfn.launches
-    y, mu, rstd = tfn.gn_silu_fwd(*args)
+    _gn_fwd_matches_plain(args)
+
+
+def _fwd_counts():
+    return tfn.launches, tfn.fwd_smem_launches, tfn.fwd_reread_launches
+
+
+def _gn_fwd_matches_plain(args, plan=None, want=None, tol=None):
+    """The forward kernel (on ``plan``, else the wrapper's) against the
+    plain version (or ``want``): one launch on the plan's route, within the
+    bars, and bit-equal on a second identical call."""
+    x = args[0]
+    B, H, W, C = x.shape
+    route = plan or tfn._gn_fwd_plan(B, H * W, C, args[3], x.dtype)
+
+    def run():
+        if plan is None:
+            return tfn.gn_silu_fwd(*args)
+        return tfn._gn_fwd_launch(*args, plan)
+
+    before = _fwd_counts()
+    y, mu, rstd = run()
     torch.cuda.synchronize()
-    assert tfn.launches == before + 1
-    y0, mu0, rstd0 = tfn.gn_silu_reference(*args)
-    atol, rtol = TOL[dtype]
-    assert y.dtype == dtype and y.shape == args[0].shape
-    torch.testing.assert_close(y.float(), y0.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(mu, mu0, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(rstd, rstd0, atol=1e-5, rtol=1e-4)
+    assert tuple(a - b for a, b in zip(_fwd_counts(), before)) == (
+        1, int(route[2]), int(not route[2]))
+    y0, mu0, rstd0 = want or tfn.gn_silu_reference(*args)
+    atol, rtol = tol or TOL[x.dtype]
+    assert y.dtype == x.dtype and y.shape == x.shape
+    torch.testing.assert_close(y.double(), y0.double(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(mu.double(), mu0.double(), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd.double(), rstd0.double(), atol=1e-5, rtol=1e-4)
+    # no atomics: the same call gives the same bits
+    assert all(torch.equal(a, c) for a, c in zip(run(), (y, mu, rstd)))
+
+
+def _float64_reference(args):
+    x, s, b, g, eps, tb = args
+    return tfn.gn_silu_reference(x.double(), s.double(), b.double(), g, eps,
+                                 None if tb is None else tb.double())
 
 
 def test_gn_silu_kernel_large_mean_against_float64(card):
     args = _gn_args((4, 16, 16, 256), 32, True, torch.float32, card, mean=1000.0)
-    y = tfn.gn_silu_fwd(*args)[0]
-    x, s, b, g, eps, tb = args
-    y64 = tfn.gn_silu_reference(x.double(), s.double(), b.double(), g, eps,
-                                tb.double())[0]
-    torch.testing.assert_close(y.double(), y64, atol=1e-3, rtol=1e-3)
+    _gn_fwd_matches_plain(args, want=_float64_reference(args), tol=(1e-3, 1e-3))
+
+
+# mean 1000 at 64x64x384 against float64 on both routes: bf16 resident and
+# re-read at a cluster of 16 (fp32's chunk does not fit a block there), fp32
+# re-read
+@pytest.mark.parametrize("dtype,resident", [(torch.bfloat16, True), (torch.bfloat16, False),
+                                            (torch.float32, False)],
+                         ids=["bf16-resident", "bf16-reread", "fp32-reread"])
+def test_gn_silu_fwd_large_mean_on_both_routes(card, dtype, resident):
+    args = _gn_args((2, 64, 64, 384), 32, True, dtype, card, mean=1000.0)
+    tol = (1e-3, 1e-3) if dtype == torch.float32 else TOL[dtype]
+    _gn_fwd_matches_plain(args, (16, 256, resident), _float64_reference(args), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("resident", [True, False], ids=["resident", "reread"])
+def test_gn_silu_fwd_every_plan_matches_plain(card, cluster, resident, dtype):
+    """Every cluster size on both routes (the chunk of (4, 16, 16, 128)
+    fits a block resident at every cluster size)."""
+    args = _gn_args((4, 16, 16, 128), 32, True, dtype, card)
+    _gn_fwd_matches_plain(args, (cluster, -(-256 // cluster), resident))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,groups", [((16, 16, 16, 64), 32), ((2, 8, 8, 384), 32)])
+def test_gn_silu_fwd_unaligned_operands(card, shape, groups, dtype):
+    """A contiguous x not 16-byte aligned takes the element copies."""
+    x, *rest = _gn_args(shape, groups, True, dtype, card)
+    x = _unaligned(x)
+    assert x.data_ptr() % 16
+    _gn_fwd_matches_plain((x, *rest))
 
 
 # the main path's shapes (train step at batch 128 and serving forward at
