@@ -48,17 +48,41 @@ package), in phases; any failure exits non-zero before the final line.
               dK/dV's 5 all on the tensor cores, none on FMA); (c) the
               step's wall and device time, idle share, top kernels and
               peak memory
-7. times      each kernel's device time per train step and per serving
-              U-Net forward beside its bound, its plain version and the
-              PyTorch yardstick (timed here only), request latency and
-              forwards per second; the GN backward at its largest train-
-              step shape and the GN forward at 64x64x384 and 64x64x128
-              (batch 128) on every cluster size and route beside the plan's
-              pick
+7. run        train_ddpm on celeba64_attn at batch 128, bf16, the preset's
+              TrainConfig, 3 epochs of 3 batches with the eval pass, a DDIM
+              grid (n = 16) and a checkpoint per epoch: (a) uninterrupted;
+              (b) stopped by a PreemptionFlag after epoch 1's second batch;
+              (c) resume_path="auto" from (b)'s _preempt save, which must
+              equal (a) bit for bit (cuDNN deterministic); exact launches of
+              (a); the checkpoints on disk, one save's dispatch and durable
+              times and its size
+8. sample     from (a)'s _last checkpoint (EMA weights): ddpm_infer_sample
+              over the full T = 1000 ladder and ddim_infer_sample at n = 16,
+              both denoise strips; each PNG against grid_nrow/make_grid,
+              seconds per grid, forwards per second, launches
+9. remat      one celeba64_attn step at batch 128, dropout 0.1, with remat
+              False, True and "masks" from the same seed: updated params,
+              grad norm, loss and generator bit-equal; launches as the
+              config gives them (45 + 44 GN forwards under True); peak memory
+10. hq256     celebahq256 at full width (63,100,675 params) with remat=True
+              and its TrainConfig (batch 64 = 8 micro-batches of 8): every
+              kernel call of one micro-batch against its plain version in
+              bf16 and fp32 with each GN call's route; 3 train steps (wall,
+              device time, idle share, launches per step, top kernels);
+              a micro-batch's peak memory with remat below no remat's
+11. times     each kernel's device time per train step and per serving
+              U-Net forward (and per celebahq256 step) beside its bound,
+              its plain version and the PyTorch yardstick (timed here
+              only), request latency and forwards per second; the GN
+              backward at its largest train-step shape and the GN forward
+              at 64x64x384 and 64x64x128 (batch 128) on every cluster size
+              and route beside the plan's pick
 
 Before the final line it prints one ``{"kernels": [...]}`` JSON line and the
 ``nvidia-smi`` name/power-limit line; the final line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+``--only kernels,run,...`` runs the build and the named phases only, and
+prints no result line (for trying a change on the card).
 """
 
 from __future__ import annotations
@@ -177,7 +201,11 @@ TRACE_ATTEMPTS = 4
 
 def _trace_rows(fn, iters):
     """One ``torch.profiler`` (CUPTI) trace of ``iters`` calls of ``fn()``:
-    [(kernel, ms per call, launches per call, launches in the trace)]."""
+    [(kernel, ms per call, launches per call, launches in the trace)].  A
+    kernel's ms per call is its mean launch's duration times its launches
+    per call, the trace's count over ``iters`` rounded up: a trace that lost
+    some of a kernel's events (its count no whole multiple of ``iters``)
+    then still gives that kernel's whole time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,7 +219,8 @@ def _trace_rows(fn, iters):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
-            rows.append((e.key, us / 1e3 / iters, e.count // iters, e.count))
+            per_call = -(-e.count // iters)
+            rows.append((e.key, us / 1e3 / e.count * per_call, per_call, e.count))
     return rows
 
 
@@ -204,7 +233,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
     with some of them missing; such a trace is taken again, up to
     ``TRACE_ATTEMPTS`` times in all.  A trace with no device time at the
     last attempt raises (wall time is no stand-in for device time); one
-    whose counts stay uneven is used, and counted in ``TRACE_RETRIES``."""
+    whose counts stay uneven is used (each kernel's time scaled to its
+    whole launches per call, ``_trace_rows``), and counted in
+    ``TRACE_RETRIES``."""
     import torch
 
     for _ in range(warmup):
@@ -682,10 +713,138 @@ def check_plain_backwards_float64():
         f"{max(errs):.2e}")
 
 
+def hold_gn_fwd(shape, groups, with_tb, dtype, gen, label=""):
+    """The GN forward at ``shape`` against its plain version, on the route
+    its plan names and bit-equal on a repeat; returns max |err| of y."""
+    import torch
+
+    fn = _kernel_modules()[0]
+    dn = str(dtype).split(".")[1]
+    args = gn_inputs(shape, groups, with_tb, dtype, gen)
+    y, mu, rs = gn_fwd_checked(args)
+    y0, mu0, rs0 = fn.gn_silu_reference(*args)
+    torch.cuda.synchronize()
+    e = check_close(f"gn_silu {shape} {dn} tb={with_tb}", y, y0, *TOL[dn])
+    em = check_close(f"gn mean {shape} {dn} tb={with_tb}", mu, mu0, 1e-5, 1e-5)
+    er = check_close(f"gn rstd {shape} {dn} tb={with_tb}", rs, rs0, 1e-5, 1e-4)
+    log(f"[kernels] {label}gn_silu_fwd {shape} G={groups} {dn} tb={with_tb} plan "
+        f"{_gn_fwd_plan(('gn', shape, groups), dtype)}: max|err| {e:.2e} (mean "
+        f"{em:.2e}, rstd {er:.2e}); a second call bit-equal")
+    return e
+
+
+def hold_gn_bwd(shape, groups, with_tb, dtype, gen, case="", label=""):
+    """The GN backward at ``shape`` (``case``: "", "mean1000" against
+    float64 from the same statistics, "unaligned") against its plain
+    version, on the route its plan names and bit-equal on a repeat;
+    returns the max |err| of (dx, dgamma, dbeta[, dtb])."""
+    import torch
+
+    fn = _kernel_modules()[0]
+    dn = str(dtype).split(".")[1]
+    args = gn_bwd_inputs(shape, groups, with_tb, dtype, gen,
+                         1000.0 if case == "mean1000" else 0.0)
+    if case == "unaligned":
+        args = (_unaligned(args[0]),) + args[1:5] + (_unaligned(args[5]),) + args[6:]
+    got = gn_bwd_checked(args, dtype)
+    if case == "mean1000":
+        x, s_, b_, mu, rs, dy, g, tb = args
+        want = fn.gn_silu_bwd_reference(x.double(), s_.double(), b_.double(), mu, rs,
+                                        dy.double(), g, None if tb is None else tb.double())
+    else:
+        want = fn.gn_silu_bwd_reference(*args)
+    torch.cuda.synchronize()
+    if (got[3] is None) != (not with_tb) or got[0].dtype != dtype:
+        raise AssertionError(f"gn_silu_bwd {shape} {dn} tb={with_tb}: wrong outputs")
+    errs = [check_scaled(f"gn_silu_bwd {shape} {case} {dn} tb={with_tb} {nm}",
+                         a, w, BWD_TOL[dn if nm == "dx" else "float32"])
+            for nm, a, w in zip(("dx", "dgamma", "dbeta", "dtb"), got, want)
+            if w is not None]
+    log(f"[kernels] {label}gn_silu_bwd {shape} G={groups} {case or 'main'} {dn} "
+        f"tb={with_tb} plan {_gn_plan(('gn_bwd', shape, groups), dtype)}: "
+        f"max|err| (dx, dgamma, dbeta[, dtb]) "
+        f"{', '.join(f'{v:.2e}' for v in errs)}; a second call bit-equal")
+    return max(errs)
+
+
+def hold_flash_fwd(shape, dtype, gen, label=""):
+    """The flash forward at ``shape`` against its plain version, on the
+    tensor cores (bf16) or FMA (fp32); returns max |err| of O."""
+    import torch
+
+    fa = _kernel_modules()[1]
+    dn = str(dtype).split(".")[1]
+    q, k, v = flash_inputs(shape, dtype, gen)
+    with variant_used("fwd", dtype):
+        o, lse = fa.flash_attn_fwd(q, k, v)
+    o0, lse0 = fa.flash_attn_reference(q, k, v)
+    torch.cuda.synchronize()
+    e = check_close(f"flash O {shape} {dn}", o, o0, *TOL[dn])
+    el = check_close(f"flash LSE {shape} {dn}", lse, lse0, 1e-4, 1e-5)
+    log(f"[kernels] {label}flash_attn_fwd {shape} {dn}: O max|err| {e:.2e}, "
+        f"LSE max|err| {el:.2e}")
+    return e
+
+
+def hold_flash_bwd(shape, dtype, gen, label=""):
+    """dQ and dK/dV at ``shape`` against their plain versions, on the
+    tensor cores (bf16) or FMA (fp32); returns (max |err| of dQ, of dK and
+    dV)."""
+    import torch
+
+    fa = _kernel_modules()[1]
+    dn = str(dtype).split(".")[1]
+    args = flash_bwd_inputs(shape, dtype, gen)
+    with variant_used("bwd_dq", dtype):
+        dq = fa.flash_attn_bwd_dq(*args)
+    with variant_used("bwd_dkv", dtype):
+        dk, dv = fa.flash_attn_bwd_dkv(*args)
+    dq0 = fa.flash_attn_bwd_dq_reference(*args)
+    dk0, dv0 = fa.flash_attn_bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    e_dq = check_scaled(f"flash dQ {shape} {dn}", dq, dq0, BWD_TOL[dn])
+    e_dk = check_scaled(f"flash dK {shape} {dn}", dk, dk0, BWD_TOL[dn])
+    e_dv = check_scaled(f"flash dV {shape} {dn}", dv, dv0, BWD_TOL[dn])
+    log(f"[kernels] {label}flash_attn_bwd {shape} {dn}: max|err| dQ {e_dq:.2e}, "
+        f"dK {e_dk:.2e}, dV {e_dv:.2e}")
+    return e_dq, max(e_dk, e_dv)
+
+
+def hold_calls(calls, gen, label=""):
+    """Every distinct recorded wrapper call against its plain version in
+    bf16 and fp32 (the route each GN call's plan names, the flash variant
+    each dtype takes); returns the worst bf16 error of each kernel."""
+    import torch
+
+    worst = dict.fromkeys(KERNELS, 0.0)
+    gn_fwd = sorted({(c[1], c[2], c[3]) for c in calls if c[0] == "gn"},
+                    key=lambda s: (s[0][0], s[0][3], s[0][1], s[2]))
+    gn_bwd = sorted({(c[1], c[2], c[3]) for c in calls if c[0] == "gn_bwd"},
+                    key=lambda s: (s[0][3], s[0][1], s[2]))
+    fl_fwd = sorted({c[1] for c in calls if c[0] == "flash_attn_fwd"})
+    fl_bwd = sorted({c[1] for c in calls if c[0] == "flash_attn_bwd_dq"})
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        for shape, groups, with_tb in gn_fwd:
+            e = hold_gn_fwd(shape, groups, with_tb, dtype, gen, label)
+            worst["gn_silu_fwd"] = max(worst["gn_silu_fwd"], e if bf16 else 0.0)
+        for shape, groups, with_tb in gn_bwd:
+            e = hold_gn_bwd(shape, groups, with_tb, dtype, gen, label=label)
+            worst["gn_silu_bwd"] = max(worst["gn_silu_bwd"], e if bf16 else 0.0)
+        for shape in fl_fwd:
+            e = hold_flash_fwd(shape, dtype, gen, label)
+            worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], e if bf16 else 0.0)
+        for shape in fl_bwd:
+            e_dq, e_dkv = hold_flash_bwd(shape, dtype, gen, label)
+            if bf16:
+                worst["flash_attn_bwd_dq"] = max(worst["flash_attn_bwd_dq"], e_dq)
+                worst["flash_attn_bwd_dkv"] = max(worst["flash_attn_bwd_dkv"], e_dkv)
+    return worst
+
+
 def phase_kernels(gn_calls, fl_calls, train_calls):
     import torch
 
-    from ddpm_diffusion_model_tpu_torch.ops import flash_attention as fa
     from ddpm_diffusion_model_tpu_torch.ops import fused_norm as fn
 
     torch.backends.cudnn.allow_tf32 = False
@@ -696,20 +855,10 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
     shapes = sorted({(c[1], c[2]) for c in gn_fwd}, key=lambda s: (s[0][0], s[0][3], s[0][1]))
     for shape, groups in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
             for with_tb in (False, True):
-                args = gn_inputs(shape, groups, with_tb, dtype, gen)
-                y, mu, rs = gn_fwd_checked(args)
-                y0, mu0, rs0 = fn.gn_silu_reference(*args)
-                torch.cuda.synchronize()
-                e = check_close(f"gn_silu {shape} {dn} tb={with_tb}", y, y0, *TOL[dn])
-                em = check_close(f"gn mean {shape} {dn} tb={with_tb}", mu, mu0, 1e-5, 1e-5)
-                er = check_close(f"gn rstd {shape} {dn} tb={with_tb}", rs, rs0, 1e-5, 1e-4)
+                e = hold_gn_fwd(shape, groups, with_tb, dtype, gen)
                 if dtype == torch.bfloat16:
                     worst["gn_silu_fwd"] = max(worst["gn_silu_fwd"], e)
-                log(f"[kernels] gn_silu_fwd {shape} G={groups} {dn} tb={with_tb} plan "
-                    f"{_gn_fwd_plan(('gn', shape, groups), dtype)}: max|err| {e:.2e} (mean "
-                    f"{em:.2e}, rstd {er:.2e}); a second call bit-equal")
     # large-mean input: the two-pass variance against a float64 reference
     args = gn_inputs((BATCH, 32, 32, 256), 32, True, torch.float32, gen, mean=1000.0)
     y = fn.gn_silu_fwd(*args)[0]
@@ -729,35 +878,10 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
     cases = [(shape, groups, "") for shape, groups in shapes] + GN_BWD_EXTRA
     for shape, groups, case in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
             for with_tb in (False, True):
-                args = gn_bwd_inputs(shape, groups, with_tb, dtype, gen,
-                                     1000.0 if case == "mean1000" else 0.0)
-                if case == "unaligned":
-                    args = (_unaligned(args[0]),) + args[1:5] + (_unaligned(args[5]),) \
-                        + args[6:]
-                got = gn_bwd_checked(args, dtype)
-                if case == "mean1000":
-                    x, s_, b_, mu, rs, dy, g, tb = args
-                    want = fn.gn_silu_bwd_reference(x.double(), s_.double(), b_.double(),
-                                                    mu, rs, dy.double(), g,
-                                                    None if tb is None else tb.double())
-                else:
-                    want = fn.gn_silu_bwd_reference(*args)
-                torch.cuda.synchronize()
-                if (got[3] is None) != (not with_tb) or got[0].dtype != dtype:
-                    raise AssertionError(f"gn_silu_bwd {shape} {dn} tb={with_tb}: "
-                                         "wrong outputs")
-                errs = [check_scaled(f"gn_silu_bwd {shape} {case} {dn} tb={with_tb} {nm}",
-                                     a, w, BWD_TOL[dn if nm == "dx" else "float32"])
-                        for nm, a, w in zip(("dx", "dgamma", "dbeta", "dtb"), got, want)
-                        if w is not None]
+                e = hold_gn_bwd(shape, groups, with_tb, dtype, gen, case)
                 if dtype == torch.bfloat16 and not case:
-                    worst["gn_silu_bwd"] = max(worst["gn_silu_bwd"], max(errs))
-                log(f"[kernels] gn_silu_bwd {shape} G={groups} {case or 'main'} {dn} "
-                    f"tb={with_tb} plan {_gn_plan(('gn_bwd', shape, groups), dtype)}: "
-                    f"max|err| (dx, dgamma, dbeta[, dtb]) "
-                    f"{', '.join(f'{v:.2e}' for v in errs)}; a second call bit-equal")
+                    worst["gn_silu_bwd"] = max(worst["gn_silu_bwd"], e)
 
     fl_fwd = [c for c in fl_calls + train_calls if c[0] == "flash_attn_fwd"]
     # the ragged length at the serving batch (64-row blocks) and, for d <= 64,
@@ -766,41 +890,19 @@ def phase_kernels(gn_calls, fl_calls, train_calls):
         + [(TRAIN_BATCH * 4, 100, d) for d in RAGGED_DIMS if d <= 64]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
-            q, k, v = flash_inputs(shape, dtype, gen)
-            with variant_used("fwd", dtype):
-                o, lse = fa.flash_attn_fwd(q, k, v)
-            o0, lse0 = fa.flash_attn_reference(q, k, v)
-            torch.cuda.synchronize()
-            e = check_close(f"flash O {shape} {dn}", o, o0, *TOL[dn])
-            el = check_close(f"flash LSE {shape} {dn}", lse, lse0, 1e-4, 1e-5)
+            e = hold_flash_fwd(shape, dtype, gen)
             if dtype == torch.bfloat16 and shape[1] in (64, 256):
                 worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], e)
-            log(f"[kernels] flash_attn_fwd {shape} {dn}: O max|err| {e:.2e}, "
-                f"LSE max|err| {el:.2e}")
 
     # the flash backward at every train-step shape and at a ragged N = 100
     shapes = sorted({c[1] for c in train_calls if c[0] == "flash_attn_bwd_dq"}) \
         + [(TRAIN_BATCH // 2, 100, d) for d in RAGGED_DIMS]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
-            args = flash_bwd_inputs(shape, dtype, gen)
-            with variant_used("bwd_dq", dtype):
-                dq = fa.flash_attn_bwd_dq(*args)
-            with variant_used("bwd_dkv", dtype):
-                dk, dv = fa.flash_attn_bwd_dkv(*args)
-            dq0 = fa.flash_attn_bwd_dq_reference(*args)
-            dk0, dv0 = fa.flash_attn_bwd_dkv_reference(*args)
-            torch.cuda.synchronize()
-            e_dq = check_scaled(f"flash dQ {shape} {dn}", dq, dq0, BWD_TOL[dn])
-            e_dk = check_scaled(f"flash dK {shape} {dn}", dk, dk0, BWD_TOL[dn])
-            e_dv = check_scaled(f"flash dV {shape} {dn}", dv, dv0, BWD_TOL[dn])
+            e_dq, e_dkv = hold_flash_bwd(shape, dtype, gen)
             if dtype == torch.bfloat16 and shape[1] in (64, 256):
                 worst["flash_attn_bwd_dq"] = max(worst["flash_attn_bwd_dq"], e_dq)
-                worst["flash_attn_bwd_dkv"] = max(worst["flash_attn_bwd_dkv"], e_dk, e_dv)
-            log(f"[kernels] flash_attn_bwd {shape} {dn}: max|err| dQ {e_dq:.2e}, "
-                f"dK {e_dk:.2e}, dV {e_dv:.2e}")
+                worst["flash_attn_bwd_dkv"] = max(worst["flash_attn_bwd_dkv"], e_dkv)
     check_plain_backwards_float64()
     return worst
 
@@ -1410,6 +1512,512 @@ def phase_train_epoch(preset, model, images):
     return res
 
 
+# ------------------------------------------- the run, sampling, remat, hq256
+
+RUN_PRESET = "celeba64_attn"
+RUN_BATCHES = 3  # batches of blob faces per epoch of the [run] phase
+RUN_EPOCHS = 3
+RUN_TRIP = (1, 2)  # (epoch, batch) at whose draw run (b)'s flag trips
+SAMPLE_N = 16
+DDIM_STEPS = 50  # the ladders of ddim_sample (the hook) and of the DDIM entry points
+HQ_PRESET = "celebahq256"
+HQ_STEPS = 3
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, chosen without benchmarking: the
+    same work gives the same bits."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+class RunLoader:
+    """The [run] phase's loader: fixed batches in an order shuffled by
+    ``set_epoch``; trips ``flag`` when batch RUN_TRIP[1] of epoch
+    RUN_TRIP[0] is drawn, so the run stops after that epoch's second
+    batch."""
+
+    def __init__(self, batches, flag=None):
+        self.batches, self.flag, self.epoch = batches, flag, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        import numpy as np
+
+        order = np.random.default_rng(self.epoch).permutation(len(self.batches))
+        for i, j in enumerate(order):
+            if self.flag is not None and (self.epoch, i) == RUN_TRIP:
+                self.flag()
+            yield self.batches[j]
+
+
+def count_forwards(model):
+    """A list whose first item counts ``model``'s forwards (its
+    ``functional_call``s too), and whose second the images they took."""
+    seen = [0, 0]
+
+    def hook(_m, inp, _o):
+        seen[0] += 1
+        seen[1] += inp[0].shape[0]
+
+    model.register_forward_hook(hook)
+    return seen
+
+
+def state_differences(a, b):
+    """The parts of two train states that are not bit-equal, each with its
+    max |difference| over the tensor's norm."""
+    import torch
+
+    out = {}
+    for key in ("step", "count", "schedule_count"):
+        va = a.step if key == "step" else a.opt_state[key]
+        vb = b.step if key == "step" else b.opt_state[key]
+        if va != vb:
+            out[key] = f"{va} vs {vb}"
+    names = [n for n, _ in a.model.named_parameters()]
+    pairs = [(f"params[{n}]", p, q) for n, p, q in
+             zip(names, a.model.parameters(), b.model.parameters())]
+    for kind in ("mu", "nu"):
+        pairs += [(f"{kind}[{n}]", m, v) for n, m, v in
+                  zip(names, a.opt_state[kind], b.opt_state[kind])]
+    pairs += [(f"ema[{n}]", a.ema_params[n], b.ema_params[n]) for n in names]
+    pairs.append(("generator", a.generator.get_state(), b.generator.get_state()))
+    for name, p, q in pairs:
+        if not torch.equal(p, q):
+            d = (p.double() - q.double()).abs().max() / max(float(q.double().norm()), 1e-30)
+            out[name] = f"{float(d):.3e}"
+    return out
+
+
+def _dir_mib(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path)
+               for f in fs) / 2**20
+
+
+def ddim_ladder(sched, kind):
+    from ddpm_diffusion_model_tpu_torch.sampling import build_ddim_schedule
+
+    return build_ddim_schedule(kind, DDIM_STEPS, sched.T,
+                               alphas_cumprod=sched.alphas_cumprod.cpu().numpy())
+
+
+def phase_run(preset, base_sd, images, tmp):
+    """train_ddpm on celeba64_attn at batch 128 with the preset's
+    TrainConfig: (a) RUN_EPOCHS epochs of RUN_BATCHES batches with a
+    checkpoint and a DDIM grid per epoch and the eval pass; (b) the same
+    run stopped by a PreemptionFlag after epoch 1's second batch; (c)
+    resume_path="auto" from (b)'s _preempt save.  (c) must equal (a) bit
+    for bit.  Returns the phase's numbers and (a)'s checkpoint dir."""
+    import numpy as np
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.ops import make_schedule
+    from ddpm_diffusion_model_tpu_torch.sampling import ddim_sample
+    from ddpm_diffusion_model_tpu_torch.training import (PreemptionFlag, read_meta,
+                                                         save_checkpoint, train_ddpm,
+                                                         wait_for_checkpoints)
+
+    batches = [np.ascontiguousarray(images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(RUN_BATCHES)]
+    sched = make_schedule(preset.diffusion, device="cuda")
+    configs = {"model": preset.model.to_dict(), "diffusion": preset.diffusion.to_dict(),
+               "train": preset.train.to_dict()}
+    forwards = {}
+
+    def run(tag, ckpt_dir, loader, flag=False, **kw):
+        model = UNetDenoiser(preset.model, dtype=torch.bfloat16, device="cuda")
+        model = model.to(memory_format=torch.channels_last)
+        forwards[tag] = count_forwards(model)
+        log(f"[run] ({tag}) train_ddpm {RUN_PRESET}, batch {TRAIN_BATCH}, bf16, "
+            f"{RUN_EPOCHS} epochs of {RUN_BATCHES} batches -> {ckpt_dir}")
+        t0 = time.perf_counter()
+        with cudnn_deterministic():
+            state, summary = train_ddpm(
+                model, sched, loader, train_config=preset.train, init_params=base_sd,
+                init_seed=5, epochs=RUN_EPOCHS, sample_every=1, sample_n=SAMPLE_N,
+                img_size=preset.img_size, sample_fn=ddim_sample, eval_loader=batches[:1],
+                ckpt_dir=ckpt_dir, run_name=RUN_PRESET, save_every=1,
+                configs_for_ckpt=configs, handle_preemption=flag, **kw)
+        torch.cuda.synchronize()
+        sys.stdout.flush()
+        return state, summary, time.perf_counter() - t0
+
+    dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    # the slice's main path: counts set to 0 just before, read just after
+    reset_counts()
+    a, sum_a, sec_a = run("a", dir_a, RunLoader(batches))
+    counts = read_counts()
+    n_fwd, steps = forwards["a"][0], RUN_EPOCHS * RUN_BATCHES
+    # a DDIM grid steps once per rung of the ladder but the last
+    hook_fwd = RUN_EPOCHS * (len(ddim_ladder(sched, "karras")) - 1)
+    eval_fwd = 2 * RUN_EPOCHS
+    if a.step != steps or n_fwd != steps + eval_fwd + hook_fwd:
+        raise AssertionError(f"run (a): {a.step} steps and {n_fwd} forwards, expected "
+                             f"{steps} and {steps + eval_fwd + hook_fwd}")
+    want = {"gn_silu_fwd": GN_LAUNCHES_PER_FORWARD * n_fwd,
+            "gn_silu_fwd_smem": GN_FWD_SMEM_PER_FORWARD[BATCH] * hook_fwd,
+            "gn_silu_bwd": GN_LAUNCHES_PER_FORWARD * steps,
+            "gn_silu_bwd_dtb": GN_DTB_LAUNCHES_PER_STEP * steps,
+            "flash_attn_fwd": FLASH_LAUNCHES_PER_FORWARD * n_fwd,
+            "flash_attn_fwd_tc": FLASH_LAUNCHES_PER_FORWARD * n_fwd,
+            "flash_attn_bwd_dq": FLASH_LAUNCHES_PER_FORWARD * steps,
+            "flash_attn_bwd_dkv": FLASH_LAUNCHES_PER_FORWARD * steps,
+            "flash_attn_bwd_dkv_tc": FLASH_LAUNCHES_PER_FORWARD * steps}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"run (a) launches {got}, expected {want}")
+    log(f"[run] (a) {sec_a:.1f} s: {steps} steps, {n_fwd} U-Net forwards ({steps} train, "
+        f"{eval_fwd} eval, {hook_fwd} in the sample hooks); launches {got}")
+
+    flag = PreemptionFlag()
+    b, sum_b, sec_b = run("b", dir_b, RunLoader(batches, flag), flag=flag)
+    meta = read_meta(os.path.join(dir_b, f"{RUN_PRESET}_preempt"))
+    if not (sum_b.get("preempted") and b.step == RUN_BATCHES + RUN_TRIP[1]
+            and (meta["epoch"], meta["global_step"]) == (RUN_TRIP[0] - 1, b.step)
+            and meta["extra"].get("partial_batches") == RUN_TRIP[1]):
+        raise AssertionError(f"run (b): step {b.step}, summary {sum_b}, meta {meta}")
+    log(f"[run] (b) {sec_b:.1f} s: preempted at step {b.step}; _preempt meta epoch "
+        f"{meta['epoch']}, global_step {meta['global_step']}, extra {meta['extra']}")
+    c, sum_c, sec_c = run("c", dir_b, RunLoader(batches), resume_path="auto")
+    diff = state_differences(c, a)
+    if diff:
+        raise AssertionError(f"the resumed run (c) differs from the uninterrupted (a): "
+                             f"{dict(list(diff.items())[:8])} ({len(diff)} parts)")
+    log(f"[run] (c) {sec_c:.1f} s: resumed at epoch {sum_c['epochs'][0]['epoch']}; params, "
+        f"EMA, mu, nu, count {c.opt_state['count']}, schedule_count "
+        f"{c.opt_state['schedule_count']}, step {c.step} and the generator equal (a)'s "
+        "bit for bit")
+    for d in (dir_a, dir_b):
+        log(f"[run] on disk in {os.path.basename(d)}/: " + ", ".join(
+            f"{n} ({_dir_mib(os.path.join(d, n)):.1f} MiB)" for n in sorted(os.listdir(d))))
+    # one more save of (a)'s state: the call's return, then durable on disk
+    path = os.path.join(tmp, "timed")
+    t0 = time.perf_counter()
+    save_checkpoint(path, a, epoch=RUN_EPOCHS - 1, configs=configs, block=False)
+    dispatch = time.perf_counter() - t0
+    wait_for_checkpoints()
+    durable = time.perf_counter() - t0
+    size = _dir_mib(path)
+    log(f"[run] checkpoint of {size:.1f} MiB: dispatched in {1e3 * dispatch:.1f} ms, "
+        f"durable in {1e3 * durable:.1f} ms")
+    return dict(seconds={"a": sec_a, "b": sec_b, "c": sec_c}, launches=got, forwards=n_fwd,
+                resumed_bit_equal=True, ckpt_mib=size, save_dispatch_ms=1e3 * dispatch,
+                save_durable_ms=1e3 * durable,
+                epochs=[dict(e) for e in sum_a["epochs"]]), dir_a
+
+
+def phase_sample(preset, ckpt_dir, tmp):
+    """The four sampling entry points from the run's _last checkpoint (EMA
+    weights): a full T=1000 DDPM grid and a DDIM grid of SAMPLE_N, both
+    denoise strips; the PNGs against grid_nrow/make_grid."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.ops import make_schedule
+    from ddpm_diffusion_model_tpu_torch.sampling import (ddim_infer_sample,
+                                                         ddpm_infer_sample,
+                                                         render_denoise_strip,
+                                                         render_denoise_strip_ddim)
+    from ddpm_diffusion_model_tpu_torch.training import init_train_state, load_checkpoint
+    from ddpm_diffusion_model_tpu_torch.utils.images import grid_nrow, make_grid
+
+    model = UNetDenoiser(preset.model, dtype=torch.bfloat16, device="cuda")
+    model = model.to(memory_format=torch.channels_last)
+    state, meta = load_checkpoint(os.path.join(ckpt_dir, f"{RUN_PRESET}_last"),
+                                  init_train_state(model, preset.train)[0],
+                                  components=("params", "ema_params"))
+    sched = make_schedule(preset.diffusion, device="cuda")
+    seen = count_forwards(model)
+    T, S = preset.diffusion.T, preset.img_size
+    kw = dict(img_size=S, ema_params=state.ema_params, seed=3)
+    blank = lambda n: np.zeros((n, S, S, 3), np.float32)  # noqa: E731
+    rungs = len(ddim_ladder(sched, "t_linear"))
+    # (entry point, U-Net forwards, the PNG's shape): the grids step once per
+    # rung but the last, the strips (which capture) once per rung; 20 DDPM
+    # frames, at most 17 DDIM ones, one row
+    jobs = [("ddpm_infer_sample", lambda p: ddpm_infer_sample(
+                model, None, sched, n=SAMPLE_N, out_path=p, **kw),
+             T, make_grid(blank(SAMPLE_N), nrow=grid_nrow(SAMPLE_N)).shape),
+            ("ddim_infer_sample", lambda p: ddim_infer_sample(
+                model, None, sched, n=SAMPLE_N, out_path=p, steps=DDIM_STEPS, **kw),
+             rungs - 1, make_grid(blank(SAMPLE_N), nrow=grid_nrow(SAMPLE_N)).shape),
+            ("render_denoise_strip", lambda p: render_denoise_strip(
+                model, None, sched, out_path=p, **kw),
+             T, make_grid(blank(20), nrow=20, padding=2).shape),
+            ("render_denoise_strip_ddim", lambda p: render_denoise_strip_ddim(
+                model, None, sched, out_path=p, steps=DDIM_STEPS, **kw),
+             rungs, make_grid(blank(min(17, rungs)), nrow=min(17, rungs), padding=2).shape)]
+    out = {}
+    reset_counts()
+    for name, fn, n_fwd, shape in jobs:
+        path = os.path.join(tmp, f"{name}.png")
+        before = seen[0]
+        t0 = time.perf_counter()
+        grid = fn(path)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        png = np.asarray(Image.open(path))
+        want_png = np.clip(grid * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        if (grid.shape != shape or png.shape != shape or not np.isfinite(grid).all()
+                or grid.min() < 0.0 or grid.max() > 1.0 or not np.array_equal(png, want_png)
+                or seen[0] - before != n_fwd):
+            raise AssertionError(f"{name}: grid {grid.shape} (want {shape}), PNG {png.shape}, "
+                                 f"range [{grid.min()}, {grid.max()}], "
+                                 f"{seen[0] - before} forwards (want {n_fwd})")
+        out[name] = dict(seconds=sec, forwards=n_fwd, forwards_per_s=n_fwd / sec,
+                         shape=list(shape))
+        log(f"[sample] {name}: {sec:.2f} s per grid, {n_fwd} U-Net forwards, "
+            f"{n_fwd / sec:.1f} forwards/s; PNG {png.shape} as grid_nrow/make_grid say, "
+            f"range [{grid.min():.3f}, {grid.max():.3f}]")
+    counts = read_counts()
+    got = {k: counts[k] for k in KERNELS}
+    want = {k: 0 for k in KERNELS}
+    want.update(gn_silu_fwd=GN_LAUNCHES_PER_FORWARD * seen[0],
+                flash_attn_fwd=FLASH_LAUNCHES_PER_FORWARD * seen[0])
+    if got != want:
+        raise AssertionError(f"sampling launches {got}, expected {want}")
+    log(f"[sample] from {RUN_PRESET}_last (EMA weights, step {meta['global_step']}): "
+        f"{seen[0]} forwards, launches {got}")
+    out["launches"] = got
+    return out
+
+
+def _resblocks(model):
+    from ddpm_diffusion_model_tpu_torch.models.blocks import ResBlock
+
+    return sum(isinstance(m, ResBlock) for m in model.modules())
+
+
+def remat_launches(n_res, remat, n_attn):
+    """Launches of one forward and backward of a U-Net with ``n_res``
+    ResBlocks and ``n_attn`` AttnBlocks: two GN+SiLU per ResBlock and the
+    head's, the ResBlocks' again under remat=True (the recompute); the
+    AttnBlocks are not rematerialised."""
+    gn = 2 * n_res + 1
+    return {"gn_silu_fwd": gn + (2 * n_res if remat is True else 0), "gn_silu_bwd": gn,
+            "gn_silu_bwd_dtb": n_res, "flash_attn_fwd": n_attn,
+            "flash_attn_bwd_dq": n_attn, "flash_attn_bwd_dkv": n_attn}
+
+
+def _attnblocks(model):
+    from ddpm_diffusion_model_tpu_torch.models.blocks import AttnBlock
+
+    return sum(isinstance(m, AttnBlock) for m in model.modules())
+
+
+def phase_remat(preset, base_sd, images):
+    """One train step of celeba64_attn at batch 128, dropout 0.1, from the
+    same weights and seed with remat False, True and "masks": the updated
+    params, grad norm, loss and generator bit-equal; launches as the
+    config says; peak memory of each."""
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.ops import make_schedule
+    from ddpm_diffusion_model_tpu_torch.training import init_train_state, make_train_step
+
+    sched = make_schedule(preset.diffusion, device="cuda")
+    x = torch.from_numpy(images[:TRAIN_BATCH]).cuda()
+    out, first = {}, None
+    for remat in (False, True, "masks"):
+        model = UNetDenoiser(preset.model, dtype=torch.bfloat16, device="cuda", remat=remat)
+        model.load_state_dict(base_sd, strict=True)
+        model = model.to(memory_format=torch.channels_last).train()
+        n_res, n_attn = _resblocks(model), _attnblocks(model)
+        state, tx = init_train_state(model, preset.train, seed=6)
+        step = make_train_step(model, sched, tx, preset.train)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with cudnn_deterministic():
+            reset_counts()
+            state, m = step(state, x)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = remat_launches(n_res, remat, n_attn)
+        got = {k: counts[k] for k in want}
+        if (n_res, n_attn) != (22, 5) or got != want:
+            raise AssertionError(f"remat={remat!r}: {n_res} ResBlocks, {n_attn} AttnBlocks, "
+                                 f"launches {got}, expected {want}")
+        res = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   params=_flat(model.parameters()), gen=state.generator.get_state(),
+                   launches=got, peak_gib=peak / 2**30,
+                   step_peak_over_state_gib=(peak - base) / 2**30)
+        log(f"[remat] remat={remat!r}: launches {got} (config: {n_res} ResBlocks, {n_attn} "
+            f"AttnBlocks); peak memory {res['peak_gib']:.2f} GiB ({res['step_peak_over_state_gib']:.2f}"
+            f" GiB over the state); loss {res['loss']:.6f}, grad norm {res['grad_norm']:.6f}")
+        first = first or res
+        same = (res["loss"] == first["loss"] and res["grad_norm"] == first["grad_norm"]
+                and torch.equal(res["params"], first["params"])
+                and torch.equal(res["gen"], first["gen"]))
+        if not same:
+            d = float((res["params"] - first["params"]).abs().max())
+            raise AssertionError(f"remat={remat!r} differs from remat=False: loss "
+                                 f"{res['loss']} vs {first['loss']}, grad norm "
+                                 f"{res['grad_norm']} vs {first['grad_norm']}, params max "
+                                 f"|diff| {d:.3e}")
+        out[str(remat)] = {k: v for k, v in res.items() if k not in ("params", "gen")}
+        del model, state, step, tx
+        torch.cuda.empty_cache()
+    log("[remat] updated params, grad norm, loss and the generator bit-equal across "
+        "remat False, True and 'masks'")
+    return out
+
+
+def build_hq256():
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser, count_params
+    from ddpm_diffusion_model_tpu_torch.utils.config import get_preset
+
+    preset = get_preset(HQ_PRESET)
+    torch.manual_seed(1)
+    model = UNetDenoiser(preset.model, dtype=torch.bfloat16, device="cuda",
+                         remat=preset.remat)
+    n = count_params(model)
+    if n != 63_100_675 or preset.remat is not True:
+        raise AssertionError(f"{HQ_PRESET}: {n} params, remat {preset.remat!r}")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.add_(0.1 * torch.randn_like(p))
+    log(f"[hq256] {HQ_PRESET}: {n:,} params (seed 1), remat={preset.remat}, "
+        f"batch {preset.batch_size} = {preset.train.grad_accum_steps} x "
+        f"{preset.batch_size // preset.train.grad_accum_steps}")
+    return preset, model.to(memory_format=torch.channels_last).train()
+
+
+def phase_hq256():
+    """celebahq256 at full width with remat=True and the preset's
+    TrainConfig: every kernel call of one micro-batch against its plain
+    version; HQ_STEPS train steps (wall, device time, idle share, launches,
+    top kernels); remat's peak memory against no remat's; each kernel's
+    times at these shapes."""
+    import numpy as np
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.data import blob_faces_array
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.ops import make_schedule
+    from ddpm_diffusion_model_tpu_torch.training import init_train_state, make_train_step
+
+    preset, model = build_hq256()
+    accum = preset.train.grad_accum_steps
+    micro = preset.batch_size // accum
+    S, T = preset.img_size, preset.diffusion.T
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.ascontiguousarray(
+        blob_faces_array(preset.batch_size, img_size=S, seed=1))).cuda()
+    log(f"[hq256] {preset.batch_size} synthetic blob faces at {S}x{S} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sched = make_schedule(preset.diffusion, device="cuda")
+    n_res, n_attn = _resblocks(model), _attnblocks(model)
+    per_micro = remat_launches(n_res, True, n_attn)
+    if (n_res, n_attn) != (27, 3):
+        raise AssertionError(f"{HQ_PRESET}: {n_res} ResBlocks, {n_attn} AttnBlocks")
+
+    # the calls of one micro-batch's forward, recompute and backward
+    calls = []
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t = torch.randint(1, T, (micro,), generator=gen, device="cuda")
+    with record_calls(calls):
+        model(x[:micro], t, generator=gen).float().square().mean().backward()
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    kinds = {"gn_silu_fwd": "gn", "gn_silu_bwd": "gn_bwd", "flash_attn_fwd": "flash_attn_fwd",
+             "flash_attn_bwd_dq": "flash_attn_bwd_dq", "flash_attn_bwd_dkv": "flash_attn_bwd_dkv"}
+    got = {k: sum(c[0] == v for c in calls) for k, v in kinds.items()}
+    got["gn_silu_bwd_dtb"] = sum(c[0] == "gn_bwd" and c[4] for c in calls)
+    if got != per_micro:
+        raise AssertionError(f"a {HQ_PRESET} micro-batch made the calls {got}, the config "
+                             f"says {per_micro}")
+    log(f"[hq256] one micro-batch of {micro} (forward, remat recompute, backward) calls "
+        f"{got} = the config's {n_res} ResBlocks x 2 GN (+ the head, + {2 * n_res} "
+        f"recomputed) and {n_attn} attentions")
+    routes = {}
+    for c in calls:
+        if c[0] in ("gn", "gn_bwd"):
+            plan = (_gn_fwd_plan if c[0] == "gn" else _gn_plan)(c, torch.bfloat16)
+            key = f"{c[0]} {'x'.join(map(str, c[1]))} -> {plan[0]}{'s' if plan[2] else 'r'}"
+            routes[key] = routes.get(key, 0) + 1
+    log("[hq256] GN routes by call (cluster, s = chunk in shared memory, r = re-read), bf16: "
+        + "; ".join(f"{k} x{n}" for k, n in routes.items()))
+    worst = hold_calls(calls, torch.Generator(device="cuda").manual_seed(10), "hq256 ")
+
+    # HQ_STEPS train steps of the preset's batch, accumulated over micro-batches
+    state, tx = init_train_state(model, preset.train, seed=5)
+    step = make_train_step(model, sched, tx, preset.train)
+    state, _ = step(state, x)  # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the path's launches: set to 0 just before, read just after
+    t0 = time.perf_counter()
+    for _ in range(HQ_STEPS):
+        state, m = step(state, x)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / HQ_STEPS * 1e3
+    counts = read_counts()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * accum * HQ_STEPS for k, v in per_micro.items()}
+    got = {k: counts[k] for k in want}
+    if got != want or not np.isfinite(loss) or not np.isfinite(float(m["grad_norm"])):
+        raise AssertionError(f"{HQ_STEPS} {HQ_PRESET} steps: launches {got} (want {want}), "
+                             f"loss {loss}, grad norm {float(m['grad_norm'])}")
+    dev, table = device_ms(lambda: step(state, x), iters=1, warmup=0)
+    log(f"[hq256] {HQ_STEPS} train steps: wall {wall:.1f} ms per step "
+        f"({preset.batch_size * 1e3 / wall:.1f} images/s), device {dev:.1f} ms, device idle "
+        f"{100 * max(0.0, 1 - dev / wall):.1f}%, loss {loss:.5f}, peak memory "
+        f"{step_peak:.2f} GiB; launches per step "
+        f"{ {k: v // HQ_STEPS for k, v in got.items()} }")
+    for name, ms, count in table[:15]:
+        log(f"[hq256]   {ms:9.4f} ms  x{count:<5d} {name[:110]}")
+
+    # memory: one micro-batch's forward and backward with remat and without
+    plain = UNetDenoiser(preset.model, dtype=torch.bfloat16, device="cuda")
+    plain.load_state_dict(model.state_dict())
+    plain = plain.to(memory_format=torch.channels_last).train()
+    peaks = {}
+    for name, mdl in (("remat", model), ("no_remat", plain)):
+        mdl.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        mdl(x[:micro], t, generator=gen).float().square().mean().backward()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        mdl.zero_grad(set_to_none=True)
+    del plain
+    torch.cuda.empty_cache()
+    log(f"[hq256] one micro-batch of {micro}, forward and backward, peak memory over the "
+        f"weights: remat=True {peaks['remat']:.2f} GiB, no remat {peaks['no_remat']:.2f} GiB")
+    if not peaks["remat"] < peaks["no_remat"]:
+        raise AssertionError(f"remat's peak is not below no remat's: {peaks}")
+
+    tot = kernel_totals(calls, f"{HQ_PRESET} micro-batch ({micro})")
+    per_step = {k: {f: v * accum for f, v in r.items()} for k, r in tot.items()}
+    return dict(step_wall_ms=wall, step_device_ms=dev, idle_share=max(0.0, 1 - dev / wall),
+                images_per_s=preset.batch_size * 1e3 / wall, loss=loss,
+                step_peak_gib=step_peak, micro_peak_over_weights_gib=peaks,
+                launches=got, launches_per_step={k: v // HQ_STEPS for k, v in got.items()},
+                gn_routes=routes, worst=worst), per_step
+
+
 REPLACES = {
     "gn_silu_fwd": ("ddpm_diffusion_model_tpu/ops/fused_norm.py:115 _moments_kernel "
                     "+ :127 _apply_kernel"),
@@ -1424,7 +2032,23 @@ SOURCE = {"gn_silu_fwd": "gn_silu.cu", "gn_silu_bwd": "gn_silu.cu",
           "flash_attn_bwd_dkv": "flash_attn_bwd.cu"}
 
 
-def main() -> int:
+PHASES = ("kernels", "unet", "serving", "train", "run", "sample", "remat", "hq256", "times")
+
+
+def main(argv=None) -> int:
+    """Every phase, as the chip check runs it (no arguments).  ``--only
+    a,b`` runs the build and only the named phases (to try a change on
+    the card): it prints no result line."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = set(PHASES)
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = set(argv[1].split(","))
+        if not only <= set(PHASES):
+            print(f"chip_smoke: phases are {', '.join(PHASES)}", file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: chip_smoke.py [--only phase,...]", file=sys.stderr)
+        return 2
     if not (REPO / PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG}/ not found beside this script; run it from "
               "a checkout of the repository", file=sys.stderr)
@@ -1440,15 +2064,42 @@ def main() -> int:
     base_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
     gn_calls, fl_calls = main_path_shapes(model)
     train_calls = train_path_shapes(model)
-    worst = phase_kernels(gn_calls, fl_calls, train_calls)
-    phase_unet(model)
-    torch.backends.cudnn.allow_tf32 = True  # the library default, for serving
-    serving = phase_serving(preset, model)
+    if "kernels" in only:
+        worst = phase_kernels(gn_calls, fl_calls, train_calls)
+    if "unet" in only:
+        phase_unet(model)
+    torch.backends.cudnn.allow_tf32 = True  # the library default, from here on
+    if "serving" in only:
+        serving = phase_serving(preset, model)
     t0 = time.perf_counter()
     images = blob_faces_array(4 * TRAIN_BATCH, img_size=64, seed=0)
     log(f"[train] {len(images)} synthetic blob faces in {time.perf_counter() - t0:.1f} s")
-    parity = phase_train_parity(preset, base_sd, images)
-    train = phase_train_epoch(preset, model, images)
+    if "train" in only:
+        parity = phase_train_parity(preset, base_sd, images)
+        train = phase_train_epoch(preset, model, images)
+    phase_s = {}
+    with tempfile.TemporaryDirectory(dir=str(REPO / "build")) as tmp:
+        if only & {"run", "sample"}:
+            t0 = time.perf_counter()
+            run, ckpt_dir = phase_run(preset, base_sd, images, tmp)
+            phase_s["run"] = time.perf_counter() - t0
+        if "sample" in only:
+            t0 = time.perf_counter()
+            sample = phase_sample(preset, ckpt_dir, tmp)
+            phase_s["sample"] = time.perf_counter() - t0
+    if "remat" in only:
+        t0 = time.perf_counter()
+        remat = phase_remat(preset, base_sd, images)
+        phase_s["remat"] = time.perf_counter() - t0
+    if "hq256" in only:
+        t0 = time.perf_counter()
+        hq, hq_tot = phase_hq256()
+        phase_s["hq256"] = time.perf_counter() - t0
+    log(f"[phases] seconds of the slice's phases: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    if only != set(PHASES):
+        log(f"[dev] ran only {sorted(only)}: no result line")
+        return 0
     tot, fwd = phase_times(model, gn_calls, fl_calls)
     ttot = kernel_totals(train_calls, f"train step (batch {TRAIN_BATCH})")
     routes = gn_bwd_routes()
@@ -1460,11 +2111,15 @@ def main() -> int:
         row = {
             "name": k, "route": "cuda", "source": f"{PKG}/csrc/{SOURCE[k]}",
             "replaces": REPLACES[k], "launches": train["launches"][k],
-            "max_abs_err": worst[k], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
+            "max_abs_err": max(worst[k], hq["worst"][k]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["flops_ms"] else "operations",
             "library_ms": r["library_ms"],
             "per": f"train step, batch {TRAIN_BATCH}, bf16 ({TRAIN_STEPS} steps launched)",
+            "launches_by_path": {"train": train["launches"][k], "run": run["launches"][k],
+                                 "sample": sample["launches"][k],
+                                 "remat_true": remat["True"]["launches"][k],
+                                 "hq256": hq["launches"][k]},
         }
         if k in tot:  # the forward kernels also serve
             s = tot[k]
@@ -1472,11 +2127,21 @@ def main() -> int:
                               "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                               "library_ms": s["library_ms"],
                               "per": f"U-Net forward, batch {BATCH}, bf16"}
+        h = hq_tot[k]
+        row["hq256"] = {"launches": hq["launches"][k], "launches_per_step":
+                        hq["launches_per_step"][k], "max_abs_err": hq["worst"][k],
+                        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+                        "bound_by": "bytes" if h["bytes_ms"] >= h["flops_ms"] else "operations",
+                        "library_ms": h["library_ms"],
+                        "per": f"{HQ_PRESET} train step, batch 64 = 8 x 8, bf16, remat=True"}
         kernels.append(row)
     log(json.dumps({"kernels": kernels, "train_step_b128_bf16": train,
                     "train_parity": parity, "unet_forward_b16_bf16": fwd,
                     "latency_s_n16_steps50": serving["latency_s_n16_steps50"],
                     "gn_bwd_routes_ms": routes, "gn_fwd_routes_ms": fwd_routes,
+                    "run": run, "sample": sample, "remat": remat,
+                    "hq256": {k: v for k, v in hq.items() if k != "worst"},
+                    "phase_seconds": phase_s,
                     "profiler_retraces": TRACE_RETRIES, "card": smi}))
     log(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,12 @@ Counterpart of ``ddpm_diffusion_model_tpu/models/blocks.py``.  ``.train()``
 and ``.eval()`` take the place of the JAX ``deterministic`` flag: the
 ResBlock's dropout runs only in training mode.
 
+``remat`` on a ResBlock is the JAX ``nn.remat`` of it: ``True`` recomputes
+the whole block in the backward (``torch.utils.checkpoint``, non-reentrant,
+so the GN and flash autograd Functions' saved tensors are dropped too) and
+``"masks"`` saves everything but the dropout bits, which the backward draws
+again (``ops/dropout.py`` ``dropout_replayed``).
+
 Layout: blocks take NCHW tensors in ``torch.channels_last`` memory.  The
 GroupNorm+SiLU of every ResBlock goes through the differentiable
 :func:`gn_silu` on the NHWC view of that memory (no copy); its backward
@@ -23,9 +29,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from ..ops.dropout import dropout as apply_dropout
+from ..ops.dropout import dropout_replayed
 from ..ops.fused_norm import gn_silu
 
 __all__ = ["ResBlock", "AttnBlock", "Downsample", "Upsample", "conv",
@@ -67,16 +75,19 @@ class ResBlock(nn.Module):
     plus the skip (1x1 conv when the width changes).  Registration order is
     the reference's: norm1, conv1, time_proj (SiLU, Linear), norm2, conv2,
     skip.  Dropout (``"packed"`` or ``"flax"``, ``ops/dropout.py``) holds
-    no parameters and runs only in training mode."""
+    no parameters and runs only in training mode.  ``remat``: False,
+    ``True`` (recompute the block in the backward) or ``"masks"`` (replay
+    only the dropout bits), as the JAX U-Net's ``remat``."""
 
     def __init__(self, in_ch: int, out_ch: int, time_dim: int,
                  dtype: torch.dtype = torch.bfloat16, dropout: float = 0.0,
-                 dropout_impl: str = "packed"):
+                 dropout_impl: str = "packed", remat=False):
         super().__init__()
         if dropout_impl not in ("packed", "flax"):
             raise ValueError(f"unknown dropout_impl {dropout_impl!r} (packed or flax)")
         self.dtype = dtype
         self.dropout, self.dropout_impl = dropout, dropout_impl
+        self.remat = remat
         self.norm1 = group_norm(in_ch)
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         self.time_proj = nn.Sequential(nn.SiLU(), nn.Linear(time_dim, out_ch))
@@ -86,6 +97,13 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.remat and self.remat != "masks" and torch.is_grad_enabled():
+            drops = self.training and self.dropout > 0.0
+            return _checkpointed(self._forward, x, t_emb, generator if drops else None)
+        return self._forward(x, t_emb, generator)
+
+    def _forward(self, x: torch.Tensor, t_emb: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         h = conv(gn_silu_nchw(x, self.norm1), self.conv1, dt)
@@ -94,10 +112,39 @@ class ResBlock(nn.Module):
                           lin.bias.to(dt))
         h = gn_silu_nchw(h, self.norm2, time_bias=t_bias.float().contiguous())
         if self.training and self.dropout > 0.0:
-            h = apply_dropout(h, self.dropout, self.dropout_impl, generator)
+            drop = dropout_replayed if self.remat == "masks" else apply_dropout
+            h = drop(h, self.dropout, self.dropout_impl, generator)
         h = conv(h, self.conv2, dt)
         skip = x if self.skip is None else conv(x, self.skip, dt)
         return h + skip
+
+
+def _checkpointed(fn, x: torch.Tensor, t_emb: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``fn(x, t_emb, generator)`` under non-reentrant checkpointing.
+
+    torch's checkpoint restores the default CPU and CUDA generators for
+    the recompute, not a generator passed in, which would draw other
+    dropout bits there and give silently wrong gradients.  So the block
+    draws from a copy set to the caller's generator's state at entry, in
+    the first forward and again in the recompute, and the caller's
+    generator is then set where the first forward left the copy: the next
+    draws are those of a run without remat."""
+    if generator is None:
+        return checkpoint(fn, x, t_emb, None, use_reentrant=False)
+    start, end = generator.get_state(), []
+
+    def body(x, t_emb):
+        gen = torch.Generator(device=generator.device)
+        gen.set_state(start)
+        out = fn(x, t_emb, gen)
+        if not end:
+            end.append(gen.get_state())
+        return out
+
+    out = checkpoint(body, x, t_emb, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(end[0])
+    return out
 
 
 class AttnBlock(nn.Module):

@@ -13,9 +13,10 @@ with ``load_state_dict(strict=True)``.
 
 This slice ports ``mode="full"`` with ``y=None``, for sampling and
 training: ``.train()`` / ``.eval()`` take the place of ``deterministic``,
-and the ResBlocks' dropout draws from the ``generator`` the forward is
-given.  Class embeddings, ``cond_channels``, the encoder-cached
-``mode="decode"`` and ``remat`` come later.
+the ResBlocks' dropout draws from the ``generator`` the forward is given,
+and ``remat`` (``True`` or ``"masks"``) rematerializes the ResBlocks, not
+the AttnBlocks, as in JAX.  Class embeddings, ``cond_channels`` and the
+encoder-cached ``mode="decode"`` come later.
 """
 
 from __future__ import annotations
@@ -101,7 +102,9 @@ class UNetDenoiser(nn.Module):
     params are float32.  The time MLP and ``out_conv`` run in float32.
     ``device`` is where the params are made (``"meta"`` builds shapes
     only).  ``dropout_impl`` is ``"packed"`` (the JAX default) or
-    ``"flax"``; ``remat`` is not ported and raises when asked for."""
+    ``"flax"``.  ``remat``: False; ``True`` recomputes every ResBlock in
+    the backward (the 256x256 memory lever); ``"masks"`` keeps everything
+    but the ResBlocks' dropout bits, which the backward draws again."""
 
     def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.bfloat16,
                  device: Union[str, torch.device] = "cuda",
@@ -111,11 +114,12 @@ class UNetDenoiser(nn.Module):
             raise NotImplementedError(
                 "class-conditional and image-conditional U-Nets are not "
                 "ported yet")
-        if remat:
-            raise NotImplementedError(f"remat={remat!r} is not ported yet")
+        if remat not in (False, True, "masks"):
+            raise ValueError(f"remat must be False, True or 'masks', got {remat!r}")
         self.config = config
         self.dtype = dtype
         self.dropout_impl = dropout_impl
+        self.remat = remat
         with resolve_device(device):
             self._build(config, dtype)
 
@@ -126,7 +130,8 @@ class UNetDenoiser(nn.Module):
                                     p_drop=cfg.attn_p_drop)
         res = lambda cin, cout: ResBlock(cin, cout, tdim, dtype=dt,
                                          dropout=cfg.dropout,
-                                         dropout_impl=self.dropout_impl)
+                                         dropout_impl=self.dropout_impl,
+                                         remat=self.remat)
         # registration order = the reference's parameters() order
         self.time_mlp = TimeMLP(tdim, tdim)
         self.in_conv = nn.Conv2d(cfg.in_channels, cfg.base_channels, 3, padding=1)

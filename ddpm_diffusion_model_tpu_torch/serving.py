@@ -14,10 +14,12 @@ Kept from the JAX service: steps snap to ``STEP_CHOICES``, n is capped at
 and eta=0 requests are coalesced into one device batch while each
 request's images depend only on its own seed.  Dropped: the power-of-two
 row padding, which only bounded XLA's compile cache (eager PyTorch
-compiles nothing per shape).  Not ported yet (400): ``sampler=dpmpp|cm``,
-``class_id``/``guidance``, ``POST /edit``, ``POST /upsample`` and mesh
-serving.  ``.pt`` checkpoints are the reference format that the JAX CLI's
-``export-torch`` writes.
+compiles nothing per shape).  ``guidance`` is clamped and snapped as the
+JAX service does it before it is tested.  Not ported yet (400):
+``sampler=dpmpp|cm``, ``class_id`` and a guidance that does not snap to
+1.0, ``POST /edit``, ``POST /upsample`` and mesh serving.  ``.pt``
+checkpoints are the reference format that the JAX CLI's ``export-torch``
+writes.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ class SamplerService:
     MAX_N = 64
     SCHEDULE_KINDS = ("t_linear", "linear", "cosine", "t_cosine", "karras",
                       "alpha_bar_cosine")
+    # guidance is clamped to [0, MAX_GUIDANCE] and snapped to this grid
+    GUIDANCE_STEP = 0.25
+    MAX_GUIDANCE = 8.0
     COALESCE_WINDOW_S = 0.005
     _LAT_WINDOW = 256
 
@@ -147,17 +152,24 @@ class SamplerService:
             raise ValueError(f"sampler={sampler} {_NOT_PORTED}")
         if sampler != "ddim":
             raise ValueError(f"sampler must be 'ddim', got {sampler!r}")
-        if class_id is not None or guidance != 1.0:
-            raise ValueError(f"class-conditional sampling {_NOT_PORTED}")
         if schedule_kind not in self.SCHEDULE_KINDS:
             raise ValueError(f"schedule must be one of {self.SCHEDULE_KINDS}, "
                              f"got {schedule_kind!r}")
+        if not math.isfinite(guidance):
+            raise ValueError(f"guidance must be finite, got {guidance!r}")
+        # clamp and snap before the test, as the JAX service does: a
+        # guidance within 0.125 of 1.0 is the unconditional request
+        guidance = min(max(float(guidance), 0.0), self.MAX_GUIDANCE)
+        guidance = round(guidance / self.GUIDANCE_STEP) * self.GUIDANCE_STEP
+        if class_id is not None or guidance != 1.0:
+            raise ValueError(f"class-conditional sampling {_NOT_PORTED}")
         if not math.isfinite(eta):
             raise ValueError(f"eta must be finite, got {eta!r}")
         n = max(1, min(int(n), self.MAX_N))
         steps = min(self.STEP_CHOICES, key=lambda s: abs(s - int(steps)))
         used = {"n": n, "steps": int(steps), "eta": float(eta),
-                "seed": int(seed), "schedule": schedule_kind, "sampler": sampler}
+                "seed": int(seed), "schedule": schedule_kind, "sampler": sampler,
+                "guidance": guidance}
 
         t0 = time.perf_counter()
         if eta == 0.0:
@@ -176,7 +188,7 @@ class SamplerService:
         """One un-batched request: eta > 0 draws in-loop noise from the
         request's own generator, so merging would entangle seeds."""
         with self._lock:
-            return ddim_sample(self.model, self.sched, n=n,
+            return ddim_sample(self.model, None, self.sched, n=n,
                                img_size=self.img_size, seed=seed, steps=steps,
                                eta=eta, schedule=schedule_kind,
                                device=self.device)

@@ -1,6 +1,7 @@
-"""Training observability: step timing and device memory.
+"""Training observability: step timing, device memory, the log tables'
+rules and times.
 
-Counterpart of the timing and memory part of
+Counterpart of the timing, memory and formatting part of
 ``ddpm_diffusion_model_tpu/training/diagnostics.py``.  PyTorch returns
 before the card has finished, so the timer synchronizes before it reads
 the clock.
@@ -13,7 +14,18 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-__all__ = ["StepTimer", "device_mem_mb"]
+__all__ = ["StepTimer", "device_mem_mb", "fmt_hms", "rule"]
+
+
+def fmt_hms(sec: float) -> str:
+    """Seconds as h:mm:ss."""
+    m, s = divmod(int(sec), 60)
+    h, m = divmod(m, 60)
+    return f"{h:d}:{m:02d}:{s:02d}"
+
+
+def rule(w: int = 92, ch: str = "─") -> str:
+    return ch * w
 
 
 def device_mem_mb(device: Optional[Union[str, torch.device]] = None

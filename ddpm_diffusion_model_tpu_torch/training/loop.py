@@ -1,26 +1,55 @@
-"""One epoch of training and the evaluation pass.
+"""The training loop: one epoch, the evaluation pass and the whole run.
 
-Counterpart of ``train_one_epoch`` and ``evaluate_loss`` in
-``ddpm_diffusion_model_tpu/training/loop.py``: the same batches protocol
-(bare arrays or ``(images, labels)`` tuples, NCHW tolerated), the same
-``max_batches`` / ``log_every`` / probe options and the same in-epoch
-statistics table (step | lr | loss | dt(ms) | grad_norm | probes).  The
-loss is summed on the device and fetched once per epoch, or at a logged
-step.  The epoch loop ``train_ddpm``, checkpoints, preemption and
-sharded batches are not ported yet.
+Counterpart of ``ddpm_diffusion_model_tpu/training/loop.py``: the same
+batches protocol (bare arrays or ``(images, labels)`` tuples, NCHW
+tolerated), the same ``max_batches`` / ``log_every`` / probe options, the
+same in-epoch statistics table (step | lr | loss | dt(ms) | grad_norm |
+probes) and, in :func:`train_ddpm`, the same run: resume (``"auto"``, the
+overrides and the EMA repair), the header and epoch table, the eval pass
+(raw, then EMA, on the same draws), the EMA-gated sample hook, the metrics
+JSONL, periodic, ``_last`` and ``_preempt`` checkpoints with the
+partial-epoch rule, and SIGTERM/SIGINT at batch boundaries.  The loss is
+summed on the device and fetched once per epoch, or at a logged step.
+
+One addition to the partial-epoch rule: a ``_preempt`` save of a partial
+epoch records in its ``extra`` how many of that epoch's batches were
+trained (``partial_batches``), and a resume from it skips them, so a
+preempted and resumed run takes the uninterrupted run's steps, bit for
+bit.  The meta's ``epoch`` is the JAX package's (the epoch before the
+partial one), and a checkpoint without the key redoes the epoch whole, as
+the JAX loop does.
+
+One card: ``mesh``/``fsdp``, the FID hooks and labelled (conditional)
+training are not ported yet and raise.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple
+import dataclasses
+import json
+import os
+import time
+from typing import (Any, Callable, Dict, Iterable, Literal, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
+from torch import nn
 
-from .diagnostics import StepTimer, device_mem_mb
-from .state import TrainState
+from ..ops.schedules import DiffusionSchedule
+from .checkpoint import (apply_resume_overrides, find_latest_checkpoint,
+                         load_checkpoint, read_meta, save_checkpoint,
+                         wait_for_checkpoints)
+from .diagnostics import StepTimer, device_mem_mb, fmt_hms, rule
+from .ema import ema_health
+from .preemption import PreemptionFlag, catch_preemption
+from .state import (TrainConfig, TrainState, init_train_state, make_lr_schedule,
+                    make_optimizer)
+from .step import make_eval_step, make_probe_fn, make_train_step
 
-__all__ = ["train_one_epoch", "evaluate_loss"]
+__all__ = ["train_ddpm", "train_one_epoch", "evaluate_loss"]
+
+_NOT_PORTED = "is not ported yet"
 
 
 def _as_batch(batch, device) -> torch.Tensor:
@@ -49,9 +78,11 @@ def train_one_epoch(
     log_grad_norm: bool = False,
     epoch_header_printed: Optional[list] = None,
     stop_flag=None,
+    skip_batches: int = 0,
 ) -> Tuple[TrainState, float, int, int]:
     """One pass over the loader.  Returns (state, avg_loss, n_batches,
-    n_images)."""
+    n_images).  The first ``skip_batches`` items are drawn from the loader
+    and not trained on (the part of a preempted epoch done before)."""
     device = next(state.model.parameters()).device
     n_batches, n_images = 0, 0
     loss_acc = None
@@ -64,6 +95,8 @@ def train_one_epoch(
     for i, batch in enumerate(dataloader):
         if max_batches is not None and i >= max_batches:
             break
+        if i < skip_batches:
+            continue
         if stop_flag:  # preemption: stop at a batch boundary, state intact
             break
         x = _as_batch(batch, device)
@@ -126,3 +159,324 @@ def evaluate_loss(eval_step, params, dataloader: Iterable, *,
         loss_acc = loss if loss_acc is None else loss_acc + loss
         n += 1
     return float(loss_acc) / n if n else float("nan")
+
+
+def _saved_train_config(ckpt_path: str) -> Optional[TrainConfig]:
+    """The TrainConfig a checkpoint was written with, from its
+    ``meta.json``, legacy-defaulted; None when it holds none."""
+    meta = read_meta(ckpt_path)
+    if meta is None:
+        return None
+    configs = meta.get("configs") or {}
+    tc = (configs.get("experiment") or {}).get("train") or configs.get("train")
+    if not isinstance(tc, dict):
+        return None
+    try:
+        return TrainConfig.from_dict(tc, legacy=True)
+    except TypeError:
+        return None
+
+
+def _check_ported(mesh, fsdp: bool, fid_reference, fid_extractor) -> None:
+    """Options of the JAX run whose modules are not ported (a labelled or
+    conditional U-Net already raises when it is built)."""
+    if mesh is not None or fsdp:
+        raise NotImplementedError(f"multi-card training (mesh/fsdp) {_NOT_PORTED}")
+    if fid_reference is not None or fid_extractor:
+        raise NotImplementedError(f"FID scoring (fid_reference/fid_extractor) {_NOT_PORTED}")
+
+
+def _finite_or_none(rec: Dict[str, Any]) -> Dict[str, Any]:
+    """Strict JSON: non-finite floats (a diverged loss) become null."""
+    return {k: (None if isinstance(v, float) and not np.isfinite(v) else v)
+            for k, v in rec.items()}
+
+
+def train_ddpm(
+    model: nn.Module,
+    sched: DiffusionSchedule,
+    train_loader: Iterable,
+    *,
+    train_config: Optional[TrainConfig] = None,
+    init_params: Optional[Mapping[str, torch.Tensor]] = None,
+    init_seed: int = 0,
+    epochs: int = 50,
+    max_batches: Optional[int] = None,
+    # sampling hooks
+    sample_every: int = 5,
+    sample_n: int = 36,
+    img_size: int = 64,
+    sample_fn: Optional[Callable] = None,
+    sample_seed: Optional[int] = 1234,
+    fid_reference: Optional[np.ndarray] = None,
+    fid_extractor: Optional[str] = None,
+    # validation hooks
+    eval_loader: Optional[Iterable] = None,
+    eval_every: int = 1,
+    eval_max_batches: Optional[int] = None,
+    # checkpoint hooks
+    ckpt_dir: str = "checkpoints",
+    run_name: str = "ddpm",
+    save_every: int = 5,
+    save_last: bool = True,
+    resume_path: Optional[str] = None,
+    mirror_dir: Optional[str] = None,
+    fixed_mirror_name: str = "latest_ddpm",
+    # diagnostics
+    log_every: int = 0,
+    probe_timesteps: Optional[Sequence[int]] = None,
+    log_mem: bool = False,
+    log_grad_norm: bool = False,
+    # resume-time control
+    reset_optimizer_state: bool = False,
+    override_lr: Optional[float] = None,
+    override_weight_decay: Optional[float] = None,
+    override_ema_decay: Optional[float] = None,
+    repair_ema_on_resume: Union[bool, Literal["force"]] = False,
+    ema_decay_after_repair: Optional[float] = None,
+    resume_components: Optional[Sequence[str]] = None,
+    configs_for_ckpt: Optional[Dict[str, Any]] = None,
+    mesh=None,
+    fsdp: bool = False,
+    metrics_jsonl: Optional[str] = "auto",
+    handle_preemption: Union[bool, PreemptionFlag] = True,
+) -> Tuple[TrainState, Dict[str, Any]]:
+    """Full training run on the model's device.  Returns (final_state,
+    summary).
+
+    ``model`` is a port ``UNetDenoiser`` (its weights are the run's start
+    unless ``init_params``, a name -> tensor map, replaces them);
+    ``init_seed`` seeds the train generator.  ``sample_fn(model, params,
+    sched, n=, img_size=, save_path=, seed=)`` is called with ``params``
+    the EMA shadow (when it is healthy) or None (the live weights): the
+    model's own parameters are never overwritten.
+
+    ``metrics_jsonl``: one JSON line per epoch, ``"auto"`` writes
+    ``<ckpt_dir>/<run_name>_metrics.jsonl``, a path overrides, None
+    disables.  ``eval_loader`` must be re-iterable (each eval epoch reads
+    it twice: raw params, then EMA).  ``handle_preemption``: True catches
+    SIGTERM/SIGINT at batch boundaries, saves ``<run_name>_preempt`` and
+    returns with ``summary["preempted"] = True``; a :class:`PreemptionFlag`
+    is a cooperative flag the caller trips (no handlers installed).
+    ``resume_path="auto"`` picks the newest checkpoint of this run in
+    ``ckpt_dir``."""
+    _check_ported(mesh, fsdp, fid_reference, fid_extractor)
+    cfg = train_config or TrainConfig()
+    os.makedirs(ckpt_dir, exist_ok=True)
+
+    # resolve the resume target first: the overrides are resume-time
+    # semantics and must not apply to a fresh run
+    if resume_path == "auto":
+        resume_path = find_latest_checkpoint(ckpt_dir, run_name)
+        print(f"[RESUME] auto -> {resume_path or 'none found (fresh start)'}")
+    will_resume = bool(resume_path and os.path.exists(resume_path))
+    if not will_resume and (
+            any(v is not None for v in (override_lr, override_weight_decay,
+                                        override_ema_decay))
+            or reset_optimizer_state or repair_ema_on_resume):
+        print("[RESUME] WARNING: resume-time overrides requested but no "
+              "checkpoint to resume — ignoring them (fresh start)")
+        override_lr = override_weight_decay = override_ema_decay = None
+        reset_optimizer_state, repair_ema_on_resume = False, False
+
+    # LR / weight-decay overrides are optimizer inputs: apply them to the
+    # config before the optimizer is built
+    if override_lr is not None:
+        cfg = dataclasses.replace(cfg, base_lr=float(override_lr))
+    if override_weight_decay is not None:
+        cfg = dataclasses.replace(cfg, weight_decay=float(override_weight_decay))
+    if will_resume:
+        # flat_optimizer picks a JAX memory layout; the port's state has one
+        # layout, but the run adopts the checkpoint's value as JAX does so
+        # the config it writes again stays the one that wrote the state
+        saved_tc = _saved_train_config(resume_path)
+        if saved_tc is not None and saved_tc.flat_optimizer != cfg.flat_optimizer:
+            print("[RESUME] adopting checkpoint optimizer layout:"
+                  f" flat_optimizer={saved_tc.flat_optimizer}")
+            cfg = dataclasses.replace(cfg, flat_optimizer=saved_tc.flat_optimizer)
+
+    if init_params is not None:
+        model.load_state_dict(dict(init_params), strict=True)
+    device = next(model.parameters()).device
+    tx = make_optimizer(cfg)
+    state, _ = init_train_state(model, cfg, seed=init_seed, tx=tx)
+    train_step = make_train_step(model, sched, tx, cfg)
+    probe_fn = make_probe_fn(model, sched) if probe_timesteps else None
+    eval_fn = make_eval_step(model, sched) if eval_loader is not None else None
+    lr_schedule = make_lr_schedule(cfg)
+
+    global_step, start_epoch, skip_batches, resumed = 0, 0, 0, False
+    if will_resume:
+        template = state
+        state, meta = load_checkpoint(resume_path, template, components=resume_components)
+        global_step = int(meta.get("global_step", state.step))
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        skip_batches = int((meta.get("extra") or {}).get("partial_batches", 0))
+        print(f"[RESUME] loaded: {resume_path} | global_step={global_step}"
+              f" | start_epoch={start_epoch}"
+              + (f" | skipping its {skip_batches} trained batches" if skip_batches else ""))
+        state = apply_resume_overrides(
+            state, template, reset_optimizer_state=reset_optimizer_state,
+            override_ema_decay=override_ema_decay, repair_ema=repair_ema_on_resume,
+            ema_decay_after_repair=ema_decay_after_repair)
+        if override_lr is not None:
+            print(f"[RESUME] override_lr -> {override_lr:.3e}")
+        if override_weight_decay is not None:
+            print(f"[RESUME] override_weight_decay -> {override_weight_decay:.3e}")
+        resumed = True
+
+    print(rule())
+    print(f"DDPM run: {run_name}")
+    print(f"Backend: {device.type} | devices: 1 | EMA: {state.ema_decay:.6f} |"
+          f" epochs: {epochs} | base_lr: {cfg.base_lr:.2e} |"
+          f" warmup_steps: {cfg.warmup_steps}")
+    if resumed:
+        print("Active resume overrides:", f"reset_opt={reset_optimizer_state}",
+              f"override_lr={override_lr}", f"override_wd={override_weight_decay}",
+              f"override_ema={override_ema_decay}")
+    print(rule())
+    print(f"{'ep':>3} | {'step':>8} | {'loss':>10} | {'lr':>9} | "
+          f"{'batches':>8} | {'images':>8} | {'imgs/s':>7} | {'time':>8} | {'warmup':>6}")
+    print(rule())
+
+    total_time = 0.0
+    header_flag = [False]
+    summary: Dict[str, Any] = {"epochs": []}
+    metrics_path = (os.path.join(ckpt_dir, f"{run_name}_metrics.jsonl")
+                    if metrics_jsonl == "auto" else metrics_jsonl)
+    if metrics_path is not None:
+        summary["metrics_jsonl"] = metrics_path
+
+    if isinstance(handle_preemption, PreemptionFlag):
+        pctx, stop_flag = None, handle_preemption
+    else:
+        pctx = catch_preemption() if handle_preemption else None
+        stop_flag = pctx.__enter__() if pctx is not None else PreemptionFlag()
+    try:
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            if hasattr(train_loader, "set_epoch"):
+                # the absolute epoch: a resumed run continues the
+                # uninterrupted run's batch orders
+                train_loader.set_epoch(epoch)
+            skip = skip_batches if epoch == start_epoch else 0
+            state, avg_loss, n_batches, n_images = train_one_epoch(
+                train_step, state, train_loader, max_batches=max_batches,
+                log_every=log_every, probe_fn=probe_fn, probe_timesteps=probe_timesteps,
+                log_mem=log_mem, log_grad_norm=log_grad_norm,
+                epoch_header_printed=header_flag, stop_flag=stop_flag,
+                skip_batches=skip)
+            # tripped during the data pass: the pass was partial and is
+            # finished on resume; tripped later (hooks): the epoch is done
+            epoch_partial = bool(stop_flag)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            sec = time.time() - t0
+            total_time += sec
+            ips = n_images / sec if sec > 0 else 0.0
+            global_step = int(state.step)
+            lr_now = float(lr_schedule(max(global_step - 1, 0)))
+            warm = (0.0 if not cfg.warmup_steps
+                    else min(1.0, global_step / float(cfg.warmup_steps)))
+            print(f"{epoch:3d} | {global_step:8d} | {avg_loss:10.5f} | {lr_now:9.2e} | "
+                  f"{n_batches:8d} | {n_images:8d} | {ips:7.1f} | {fmt_hms(sec):>8} | "
+                  f"{int(100 * warm):3d}%")
+            summary["epochs"].append(dict(epoch=epoch, loss=avg_loss, imgs_per_s=ips,
+                                          seconds=sec))
+
+            # validation: raw and EMA params on the same (t, noise) draws
+            if (eval_fn is not None and not epoch_partial
+                    and eval_every > 0 and epoch % eval_every == 0):
+                if hasattr(eval_loader, "set_epoch"):
+                    eval_loader.set_epoch(epoch)
+                val = evaluate_loss(eval_fn, None, eval_loader,
+                                    max_batches=eval_max_batches)
+                if np.isfinite(val):
+                    if hasattr(eval_loader, "set_epoch"):
+                        eval_loader.set_epoch(epoch)
+                    val_ema = evaluate_loss(eval_fn, state.ema_params, eval_loader,
+                                            max_batches=eval_max_batches)
+                    summary["epochs"][-1]["val_loss"] = val
+                    if np.isfinite(val_ema):
+                        summary["epochs"][-1]["val_loss_ema"] = val_ema
+                        print(f"└─ [EVAL]   val_loss={val:.5f} |"
+                              f" val_loss_ema={val_ema:.5f}")
+                    else:
+                        print(f"└─ [EVAL]   val_loss={val:.5f} | WARNING:"
+                              " EMA pass saw no batches — eval_loader must"
+                              " be re-iterable (got a one-shot iterator?)")
+                else:
+                    print("└─ [EVAL]   no finite val loss (empty loader or"
+                          " non-finite model output); skipping")
+
+            # sampling hook: EMA-health-gated, fixed seed; skipped on a
+            # partial epoch (the grace time goes to the save)
+            if sample_fn is not None and not epoch_partial and sample_every > 0 and (
+                    epoch % sample_every == 0 or epoch == epochs - 1):
+                out_path = os.path.join(ckpt_dir, f"{run_name}_samples_e{epoch:03d}.png")
+                ok, _, rel = ema_health(state.ema_params, dict(model.named_parameters()),
+                                        rel_tol=2.0)
+                use_ema = bool(ok and rel <= 1.0)
+                sample_fn(model, state.ema_params if use_ema else None, sched,
+                          n=sample_n, img_size=img_size, save_path=out_path,
+                          seed=sample_seed if sample_seed is not None else 0)
+                print(f"└─ [SAMPLE] grid -> {out_path} | EMA_used={use_ema}"
+                      f" | rel={rel:.3f}")
+
+            if metrics_path is not None:
+                rec = dict(summary["epochs"][-1], global_step=global_step, lr=lr_now,
+                           ts=time.time())
+                if epoch_partial:
+                    rec["partial"] = True  # finished after resume
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(_finite_or_none(rec)) + "\n")
+
+            # periodic save: never for a partial epoch, whose meta would
+            # claim the epoch completed and beat the preempt save
+            if save_every and not epoch_partial and (
+                    epoch % save_every == 0 or epoch == epochs - 1):
+                ckpt_path = os.path.join(ckpt_dir, f"{run_name}_e{epoch:03d}")
+                t_save = time.time()
+                save_checkpoint(ckpt_path, state, epoch=epoch,
+                                extra={"epoch": epoch, "global_step": global_step},
+                                configs=configs_for_ckpt, block=False,
+                                mirror_dir=mirror_dir,
+                                fixed_mirror_name=fixed_mirror_name, log=print)
+                print(f"└─ [CKPT]   saving (async) -> {ckpt_path}"
+                      f" | dispatched in {1e3 * (time.time() - t_save):.0f} ms")
+
+            if stop_flag:
+                # a partial data pass stores epoch-1 (resume finishes the
+                # epoch, skipping the batches trained) and a complete one
+                # epoch; global_step is exact either way
+                save_epoch = epoch - 1 if epoch_partial else epoch
+                extra = {"epoch": save_epoch, "global_step": global_step}
+                if epoch_partial:
+                    extra["partial_batches"] = skip + n_batches
+                ckpt_path = os.path.join(ckpt_dir, f"{run_name}_preempt")
+                save_checkpoint(ckpt_path, state, epoch=save_epoch, extra=extra,
+                                configs=configs_for_ckpt)
+                print(f"└─ [PREEMPT] signal={stop_flag.signum}: saved -> "
+                      f"{ckpt_path}; stopping cleanly")
+                summary["preempted"] = True
+                break
+    finally:
+        if pctx is not None:
+            pctx.__exit__(None, None, None)
+
+    if save_last and not summary.get("preempted"):
+        # after a preemption the _preempt save is the truth; a _last would
+        # claim epoch=epochs-1 and end auto-resume
+        ckpt_path = os.path.join(ckpt_dir, f"{run_name}_last")
+        save_checkpoint(ckpt_path, state, epoch=epochs - 1,
+                        extra={"epoch": epochs - 1, "global_step": global_step},
+                        configs=configs_for_ckpt, mirror_dir=mirror_dir,
+                        fixed_mirror_name=fixed_mirror_name)
+        print(f"└─ [CKPT]   saved -> {ckpt_path}")
+
+    wait_for_checkpoints()  # every async save durable before we return
+    print(rule())
+    print(f"Training finished in {fmt_hms(total_time)}")
+    print(rule())
+    summary["total_seconds"] = total_time
+    return state, summary

@@ -97,9 +97,15 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 class AdamWClip:
     """optax ``chain(clip_by_global_norm, adamw)`` on lists of tensors.
 
-    ``init(params)`` returns the state ``{"count", "mu", "nu"}``;
-    ``step(params, grads, state)`` clips ``grads`` in place, updates the
-    moments and ``params`` in place and advances ``count``."""
+    ``init(params)`` returns the state ``{"count", "schedule_count", "mu",
+    "nu"}``; ``step(params, grads, state)`` clips ``grads`` in place,
+    updates the moments and ``params`` in place and advances both counts.
+    ``count`` drives Adam's bias correction and ``schedule_count`` the
+    learning-rate schedule, as optax keeps ``ScaleByAdamState.count`` and
+    ``ScaleByScheduleState.count`` apart: equal on a fresh state, apart
+    after a resume that resets the moments but not the warmup.  A state
+    without ``schedule_count`` (written before it existed) runs the
+    schedule on ``count``."""
 
     def __init__(self, cfg: TrainConfig):
         if cfg.moment_dtype not in (None, "bfloat16", "float32"):
@@ -111,7 +117,7 @@ class AdamWClip:
     def init(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
         mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params]
         nu = [torch.zeros_like(p) for p in params]
-        return {"count": 0, "mu": mu, "nu": nu}
+        return {"count": 0, "schedule_count": 0, "mu": mu, "nu": nu}
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
@@ -148,12 +154,14 @@ class AdamWClip:
         torch._foreach_div_(upd, den)
         if cfg.weight_decay:
             torch._foreach_add_(upd, params, alpha=cfg.weight_decay)
-        torch._foreach_mul_(upd, -self.lr(state["count"]))
+        clock = state.get("schedule_count", state["count"])
+        torch._foreach_mul_(upd, -self.lr(clock))
         torch._foreach_add_(params, upd)
         if self.mu_dtype is not None:
             for m, m32 in zip(state["mu"], mu):
                 m.copy_(m32)
         state["count"] = count
+        state["schedule_count"] = clock + 1
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamWClip:

@@ -2,16 +2,16 @@
 
 Counterpart of the ``celeba64_low``, ``celeba64_attn`` and ``celebahq256``
 presets of ``ddpm_diffusion_model_tpu/utils/config.py``: the U-Net, the
-diffusion, the image size, the ``TrainConfig`` and the batch size (the
-epoch and sampling cadence of the JAX ``ExperimentConfig`` belong to
-``train_ddpm``, which is not ported yet).  ``remat`` is carried as the
-JAX preset has it; the port's U-Net raises when it is set.
+diffusion, the image size, the ``TrainConfig``, the batch size and
+``remat`` (False, True or ``"masks"``, for ``UNetDenoiser(remat=)``); the
+epoch and sampling cadence of the JAX ``ExperimentConfig`` are arguments
+of ``train_ddpm``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 from ..models.unet import (UNetConfig, unet_64x64_config,
                            unet_64x64_low_config, unet_256x256_config)
@@ -30,7 +30,7 @@ class Preset:
     img_size: int
     train: TrainConfig = TrainConfig()
     batch_size: int = 128
-    remat: bool = False
+    remat: Union[bool, str] = False
 
 
 PRESETS = {
@@ -81,4 +81,4 @@ def preset_from_experiment(exp: Dict[str, Any]) -> Preset:
                   img_size=int(exp.get("img_size", exp["model"]["img_resolution"])),
                   train=TrainConfig.from_dict(train) if train else TrainConfig(),
                   batch_size=int(exp.get("batch_size", 128)),
-                  remat=bool(exp.get("remat", False)))
+                  remat=exp.get("remat", False))

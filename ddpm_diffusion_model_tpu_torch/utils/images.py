@@ -1,7 +1,9 @@
 """Image-grid utilities (host-side, numpy + PIL).
 
 The port's own copy of the parts of ``ddpm_diffusion_model_tpu/utils/images.py``
-that sampling and serving need, plus :func:`encode_png` for the server.
+that sampling and serving need (``grid_nrow``, ``make_grid`` with its
+``padding``, ``save_image``, ``save_image_grid``), plus :func:`encode_png`
+for the server.
 Arrays are NHWC float in [0, 1].
 """
 
@@ -13,7 +15,14 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["make_grid", "save_image", "save_image_grid", "encode_png"]
+__all__ = ["make_grid", "save_image", "save_image_grid", "encode_png",
+           "grid_nrow"]
+
+
+def grid_nrow(n: int) -> int:
+    """Images per row of an n-image grid: ceil(sqrt(n)) (the reference's
+    int(sqrt(n)) for perfect squares, ceil otherwise)."""
+    return int(np.ceil(np.sqrt(max(1, int(n)))))
 
 
 def make_grid(images: np.ndarray, nrow: Optional[int] = None,

@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel (forward
 and backward) against its plain PyTorch version on the card, the wrappers'
 refusals, a small U-Net forward and train step on the kernels against the
-plain versions with the launches per step, and the service on the card.  Every test here carries the ``cuda`` marker and skips without a
-card.  The file imports no JAX, so it also runs where JAX is absent:
+plain versions with the launches per step, the service on the card,
+``remat`` on the kernels and a checkpoint round trip of CUDA state.  Every
+test here carries the ``cuda`` marker and skips without a card.  The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
@@ -51,6 +52,8 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
     ((16, 64, 64, 128), 32), ((16, 64, 64, 384), 32), ((16, 8, 8, 512), 32),
     ((4, 16, 16, 96), 32), ((4, 8, 8, 192), 32), ((2, 5, 5, 48), 16),
     ((1, 3, 7, 30), 30),
+    # celebahq256's largest image and widest channels
+    ((2, 256, 256, 256), 32), ((2, 16, 16, 1024), 32),
 ])
 def test_gn_silu_kernel_matches_plain(card, shape, groups, with_tb, dtype):
     args = _gn_args(shape, groups, with_tb, dtype, card)
@@ -201,6 +204,7 @@ def _unaligned(t):
     ((4, 16, 16, 96), 32, ""), ((2, 5, 5, 48), 16, ""), ((1, 3, 7, 30), 30, ""),
     ((2, 4, 4, 8192), 16, ""), ((8, 64, 64, 384), 32, ""), ((8, 16, 16, 256), 32, ""),
     ((4, 32, 32, 256), 32, "mean1000"), ((4, 16, 16, 64), 32, "unaligned"),
+    ((2, 256, 256, 256), 32, ""), ((2, 16, 16, 1024), 32, ""),  # celebahq256
 ])
 def test_gn_silu_bwd_kernel_matches_plain(card, shape, groups, case, with_tb, dtype):
     x, s, b, g, eps, tb = _gn_args(shape, groups, with_tb, dtype, card,
@@ -416,3 +420,92 @@ def test_train_step_on_kernels_matches_plain_and_counts_launches(card):
     assert out[0][1] == pytest.approx(out[1][1], rel=1e-4)
     move = out[1][2] - torch.cat([p.flatten() for p in base.values()]).to(card)
     assert float((out[0][2] - out[1][2]).norm()) <= 1e-2 * float(move.norm())
+
+
+@pytest.fixture
+def deterministic(card):
+    """cuDNN's deterministic algorithms: the same step gives the same bits."""
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield card
+    torch.backends.cudnn.deterministic = False
+
+
+def _grads(model, x, t, seed):
+    gen = torch.Generator(x.device).manual_seed(seed)
+    loss = model(x, t, generator=gen).float().square().mean()
+    loss.backward()
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, gen.get_state()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_remat_grads_equal_no_remat_on_the_kernels(deterministic, dtype):
+    """Dropout 0.1 from an explicit CUDA generator: remat=True (the
+    ResBlocks recomputed, their GN kernels launched again) and "masks" give
+    no-remat's loss and grads bit for bit and leave the generator where it
+    would be."""
+    card = deterministic
+    torch.manual_seed(5)
+    cfg = UNetConfig(**dict(SMALL, dropout=0.1))
+    base = UNetDenoiser(cfg, dtype=dtype, device=card).state_dict()
+    x = torch.randn(4, 10, 10, 3, generator=torch.Generator(card).manual_seed(1),
+                    device=card)
+    t = torch.tensor([1, 40, 500, 999], device=card)
+    out = {}
+    for remat in (False, True, "masks"):
+        model = UNetDenoiser(cfg, dtype=dtype, device=card, remat=remat)
+        model.load_state_dict(base)
+        model = model.to(memory_format=torch.channels_last).train()
+        g0 = tfn.launches
+        out[remat] = _grads(model, x, t, seed=3)
+        torch.cuda.synchronize()
+        # 11 ResBlocks x 2 norms + the head; again for the recompute
+        assert tfn.launches - g0 == 23 + (22 if remat is True else 0)
+    l0, g0, s0 = out[False]
+    for remat in (True, "masks"):
+        l1, g1, s1 = out[remat]
+        assert torch.equal(l0, l1) and torch.equal(s0, s1), remat
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1)), remat
+
+
+def test_checkpoint_round_trip_of_cuda_state(deterministic, tmp_path):
+    """Save a CUDA train state (params, moments, EMA, the CUDA generator's
+    state), load it into a fresh state on the card: equal, and one more
+    step from each gives the same bits."""
+    from ddpm_diffusion_model_tpu_torch.ops import DiffusionConfig, make_schedule
+    from ddpm_diffusion_model_tpu_torch.training import (TrainConfig, init_train_state,
+                                                         load_checkpoint, make_optimizer,
+                                                         make_train_step, save_checkpoint)
+
+    card = deterministic
+    cfg = TrainConfig(base_lr=1e-3, warmup_steps=3, moment_dtype="bfloat16")
+    sched = make_schedule(DiffusionConfig(T=100, img_size=10), device=card)
+    x = torch.rand(4, 10, 10, 3, generator=torch.Generator(card).manual_seed(2),
+                   device=card) * 2 - 1
+
+    def fresh(seed):
+        torch.manual_seed(seed)
+        model = UNetDenoiser(UNetConfig(**dict(SMALL, dropout=0.1)), device=card)
+        return init_train_state(model.to(memory_format=torch.channels_last), cfg, seed=9)[0]
+
+    state = fresh(0)
+    assert state.generator.device.type == "cuda"
+    step = make_train_step(state.model, sched, make_optimizer(cfg), cfg)
+    for _ in range(2):
+        state, _ = step(state, x)
+    path = str(tmp_path / "c")
+    save_checkpoint(path, state, epoch=0, block=False)
+    restored, meta = load_checkpoint(path, fresh(1))
+    assert meta["global_step"] == 2 and restored.generator.device.type == "cuda"
+    assert torch.equal(restored.generator.get_state(), state.generator.get_state())
+    assert restored.opt_state["mu"][0].dtype == torch.bfloat16
+    assert all(p.is_cuda for p in restored.model.parameters())
+    state, m_a = step(state, x)
+    restored, m_b = make_train_step(restored.model, sched, make_optimizer(cfg),
+                                    cfg)(restored, x)
+    assert torch.equal(m_a["loss"], m_b["loss"])
+    for p, q in zip(state.model.parameters(), restored.model.parameters()):
+        assert torch.equal(p, q)
+    assert all(torch.equal(state.ema_params[k], restored.ema_params[k])
+               for k in state.ema_params)

@@ -191,6 +191,33 @@ def test_gn_fwd_plan_covers_every_shape():
         assert sum(routes) == smem
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gn_plans_cover_celebahq256_at_its_micro_batch(dtype):
+    """celebahq256 trains at micro-batch 8 (batch 64, 8 accumulation
+    steps): images of up to 256x256x256, 16-32 MB, 5-10x the largest the
+    64-pixel presets give.  Both plans pick a legal cluster, chunk and
+    shared-memory layout at each of its 55 GN shapes, and the kernels'
+    32-bit element offsets hold the whole tensor."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    shapes = _forward_gn_shapes("celebahq256")
+    assert {(h, c) for h, _w, c, _g in shapes} >= {(256, 128), (256, 256), (16, 1024)}
+    for H, W, C, G in shapes:
+        assert 8 * H * W * C < 2 ** 31
+        for plan_fn, smem_fn, cap in ((tfn._gn_fwd_plan, tfn._gn_fwd_smem, tfn._SMEM_MAX),
+                                      (tfn._gn_bwd_plan, tfn._gn_bwd_smem,
+                                       tfn._SMEM_PER_BLOCK)):
+            cluster, chunk, resident = plan_fn(8, H * W, C, G, dtype)
+            assert cluster in (1, 2, 4, 8, 16) and chunk * cluster >= H * W
+            assert (chunk - 1) * cluster < H * W
+            tile, stages, nbytes = smem_fn(C, G, chunk, resident, item)
+            assert 1 <= tile <= chunk and nbytes <= tfn._SMEM_MAX
+            assert tile * stages >= chunk if resident else stages >= 2
+            if resident:
+                assert nbytes <= cap
+        if H == 256:  # a full wave of 16-block clusters, re-read
+            assert tfn._gn_fwd_plan(8, H * W, C, G, dtype) == (16, H * W // 16, False)
+
+
 def _kernel_order_fwd(x, s, b, groups, eps, tb, plan, itemsize=4):
     """A plain model of the CUDA forward's arithmetic and order of
     summation: d = x + (tb - K_c) with K_c the channel's first value of the

@@ -111,6 +111,9 @@ def test_eta_positive_is_deterministic_per_seed(served):
     ("sampler=euler", "sampler must be"),
     ("class_id=3", "not ported yet"),
     ("guidance=2.0", "not ported yet"),
+    ("guidance=1.2", "not ported yet"),  # snaps to 1.25
+    ("guidance=nan", "guidance must be finite"),
+    ("guidance=inf", "guidance must be finite"),
     ("eta=nan", "finite"),
 ])
 def test_bad_or_unported_requests_are_400(served, query, needle):
@@ -121,6 +124,19 @@ def test_bad_or_unported_requests_are_400(served, query, needle):
     assert ei.value.code == 400
     assert needle in json.loads(ei.value.read())["error"]
     assert svc.metrics()["client_errors"] == before + 1
+
+
+@pytest.mark.parametrize("guidance", ["1.1", "0.9", "1.125", "1"])
+def test_guidance_snapping_to_one_is_served(served, guidance):
+    """As the JAX service: guidance is clamped to [0, 8] and snapped to the
+    0.25 grid before it is tested, so near 1.0 it is the unconditional
+    request, answered 200 with the same images as guidance=1."""
+    svc, base = served
+    code, _h, _b = _get(f"{base}/sample?n=1&steps=1&seed=4&guidance={guidance}")
+    assert code == 200
+    x, used = svc.sample(n=1, steps=1, seed=4, guidance=float(guidance))
+    assert used["guidance"] == 1.0
+    np.testing.assert_array_equal(x, svc.sample(n=1, steps=1, seed=4)[0])
 
 
 @pytest.mark.parametrize("path", ["/edit", "/upsample"])

@@ -454,8 +454,9 @@ def test_not_ported_options_raise():
         model.eval()(torch.from_numpy(x), torch.from_numpy(t))  # identity in eval
         with pytest.raises(NotImplementedError, match="not ported"):
             model.train()(torch.from_numpy(x), torch.from_numpy(t))
-    with pytest.raises(NotImplementedError, match="remat"):
-        UNetDenoiser(UNetConfig(**SMALL), device="cpu", remat=True)
+    # remat is ported (tests/test_torch_remat.py); an unknown value raises
+    with pytest.raises(ValueError, match="remat"):
+        UNetDenoiser(UNetConfig(**SMALL), device="cpu", remat="always")
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(model, _scheds()[1], make_optimizer(TrainConfig()),
                         TrainConfig(superres_factor=2))
