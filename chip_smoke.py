@@ -60,6 +60,25 @@ package), in phases; any failure exits non-zero before the final line.
               over the full T = 1000 ladder and ddim_infer_sample at n = 16,
               both denoise strips; each PNG against grid_nrow/make_grid,
               seconds per grid, forwards per second, launches
+8b. solvers   from the same checkpoint (EMA weights), batch 16: the
+              decoder-only forward's kernel calls against their plain
+              versions (bf16 and fp32) and the whole decode forward on the
+              kernels against the plain versions, decode of a forward's own
+              features equal to it, decode and full forward wall and device
+              times; DPM-Solver++(2M) 20 steps, ODE and SDE (19 forwards,
+              855/95 launches each); encoder-cached DDIM-50 at
+              refresh_every=2 (25 full + 24 decode forwards, 1,725/125)
+              against plain DDIM-50 (2,205/245) from the same x_T, both walls
+              and device times and the max |diff| in [0, 1] pixels (bar
+              0.25); img2img at strength 0.6 (29 forwards) and inpaint with a
+              box at resamples=2 (98 forwards, the known region bit-equal to
+              the input); through make_server two concurrent sampler=dpmpp
+              requests in one batch, each equal to its solo re-run, a DDIM
+              and a DPM request never batched together, POST /edit img2img
+              and inpaint 200 with X-Used-* and a bad box 400; the CLI's
+              sample-dpmpp [--sde], img2img, inpaint --box and sample-ddim
+              --refresh-every 2 (exit 0, PNGs as make_grid gives); every
+              path's launches exact and on the GN plans' routes
 9. remat      one celeba64_attn step at batch 128, dropout 0.1, with remat
               False, True and "masks" from the same seed: updated params,
               grad norm, loss and generator bit-equal; launches as the
@@ -115,6 +134,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -214,7 +234,7 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 #: some kernel's event count was not a multiple of the calls traced (both
 #: are traced again); printed in the JSON line
 TRACE_RETRIES = {"empty": 0, "uneven": 0}
-TRACE_ATTEMPTS = 4
+TRACE_ATTEMPTS = 6
 
 
 def _trace_rows(fn, iters):
@@ -249,22 +269,25 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
 
     CUPTI now and then hands back a trace without the device's events, or
     with some of them missing; such a trace is taken again, up to
-    ``TRACE_ATTEMPTS`` times in all.  A trace with no device time at the
-    last attempt raises (wall time is no stand-in for device time); one
-    whose counts stay uneven is used (each kernel's time scaled to its
-    whole launches per call, ``_trace_rows``), and counted in
-    ``TRACE_RETRIES``."""
+    ``TRACE_ATTEMPTS`` times in all, and counted in ``TRACE_RETRIES``.  If
+    no trace comes back whole, the last one that held device time is used
+    (each kernel's time scaled to its whole launches per call,
+    ``_trace_rows``); if none held any, it raises (wall time is no stand-in
+    for device time)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    kept = None  # the last trace with device time, whole or not
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         rows = _trace_rows(fn, iters)
         total = sum(r[1] for r in rows)
         uneven = [r[0] for r in rows if r[3] % iters]
-        if total > 0 and (not uneven or attempt == TRACE_ATTEMPTS):
-            return total, sorted(((k, ms, n) for k, ms, n, _ in rows), key=lambda r: -r[1])
+        if total > 0:
+            kept = total, rows
+            if not uneven:
+                break
         if attempt == TRACE_ATTEMPTS:
             break
         why = "empty" if total <= 0 else "uneven"
@@ -273,9 +296,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
                 + ", ".join(u[:60] for u in uneven[:3]) + ")")
         log(f"[times] profiler trace {attempt}/{TRACE_ATTEMPTS} came back {what}; "
             "tracing again")
-    raise RuntimeError(f"{TRACE_ATTEMPTS} profiler traces in a row held no device "
-                       "time: CUPTI tracing does not work here, so no device time "
-                       "(and no idle share) can be reported")
+    if kept is None:
+        raise RuntimeError(f"{TRACE_ATTEMPTS} profiler traces in a row held no device "
+                           "time: CUPTI tracing does not work here, so no device time "
+                           "(and no idle share) can be reported")
+    total, rows = kept
+    return total, sorted(((k, ms, n) for k, ms, n, _ in rows), key=lambda r: -r[1])
 
 
 def _kernel_modules():
@@ -1816,6 +1842,479 @@ def phase_sample(preset, ckpt_dir, tmp):
     return out
 
 
+# ------------------------------------------------------------------ solvers
+
+SOLVER_STEPS = 20  # DPM-Solver++(2M): 19 forwards
+REFRESH_EVERY = 2  # encoder-cached DDIM-50: 25 full + 24 decode forwards
+STRENGTH = 0.6  # img2img: the last 30 rungs of the 50-rung ladder, 29 forwards
+INPAINT_BOX = (16, 16, 48, 48)
+RESAMPLES = 2  # inpaint: 49 steps x 2 repeats = 98 forwards
+# 12 decoder ResBlocks x 2 GN+SiLU, and out_norm; the decoder has no attention
+DECODE_GN_PER_FORWARD = 25
+# max |cached - plain| DDIM-50 in [0, 1] pixels, from the same x_T: the bar
+# tests/test_torch_fast_sampling.py holds refresh_every=2 to
+CACHED_DIFF_BOUND = 0.25
+SOLVER_PORT_WINDOW_S = 0.25  # the service's coalescing window here: the requests surely meet
+
+
+def _forward_modes(model):
+    """{"full": n, "decode": n, "batches": [...]} of ``model``'s forwards
+    (its ``functional_call``s too), filled by a pre-hook."""
+    seen = {"full": 0, "decode": 0, "batches": []}
+
+    def hook(_m, args, kwargs):
+        seen[kwargs.get("mode", "full")] += 1
+        seen["batches"].append(args[0].shape[0])
+
+    model.register_forward_pre_hook(hook, with_kwargs=True)
+    return seen
+
+
+def _window(model_seen, fn):
+    """Counts set to 0 just before ``fn()`` and read just after; returns
+    (fn's result, seconds, launches, full forwards, decode forwards)."""
+    import torch
+
+    f0, d0 = model_seen["full"], model_seen["decode"]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return out, sec, read_counts(), model_seen["full"] - f0, model_seen["decode"] - d0
+
+
+def check_launches(name, counts, full, decode, dec_smem):
+    """Raise unless ``counts`` are exactly what ``full`` full and ``decode``
+    decode forwards at BATCH launch: 45 GN and 5 flash per full forward,
+    25 GN per decode forward (``dec_smem`` of them in shared memory), on
+    the routes the plans name, no backward."""
+    want = {k: 0 for k in KERNELS}
+    want.update(gn_silu_fwd=GN_LAUNCHES_PER_FORWARD * full + DECODE_GN_PER_FORWARD * decode,
+                flash_attn_fwd=FLASH_LAUNCHES_PER_FORWARD * full)
+    got = {k: counts[k] for k in KERNELS}
+    smem = GN_FWD_SMEM_PER_FORWARD[BATCH] * full + dec_smem * decode
+    routes = (counts["gn_silu_fwd_smem"], counts["gn_silu_fwd_reread"])
+    if (got != want or routes != (smem, want["gn_silu_fwd"] - smem)
+            or counts["flash_attn_fwd_tc"] != want["flash_attn_fwd"]):
+        raise AssertionError(f"{name}: launches {got} (GN routes {routes}, flash on the tensor "
+                             f"cores {counts['flash_attn_fwd_tc']}), expected {want} after "
+                             f"{full} full and {decode} decode forwards ({smem} GN in "
+                             "shared memory)")
+    return dict(got, gn_silu_fwd_smem=routes[0], gn_silu_fwd_reread=routes[1])
+
+
+def _decode_checks(model):
+    """The decode forward at BATCH: its recorded kernel calls against their
+    plain versions (phase 3's tolerances), the whole decode forward on the
+    kernels against the plain versions in fp32 and bf16 (phase 4's bars),
+    decode of a forward's own features equal to that forward, and the
+    decode and full forwards' wall and device times."""
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+    t2 = (t - 20).clamp(min=0)  # the next rung of a 50-step ladder
+    calls = []
+    with torch.inference_mode():
+        _, feats = model(x, t, return_features=True)
+        with record_calls(calls):
+            model(x, t2, mode="decode", cached=feats)
+    torch.cuda.synchronize()
+    gn = [c for c in calls if c[0] == "gn"]
+    if len(gn) != DECODE_GN_PER_FORWARD or len(calls) != len(gn):
+        raise AssertionError(f"a decode forward made {len(gn)} GN calls of {len(calls)}, "
+                             f"expected {DECODE_GN_PER_FORWARD} and no attention")
+    dec_smem = sum(_gn_fwd_plan(c, torch.bfloat16)[2] for c in gn)
+    log(f"[solvers] a decode forward at batch {BATCH} calls gn_silu_fwd {len(gn)} times "
+        f"({dec_smem} in shared memory by the plan) and flash_attn_fwd 0 times")
+    # fp32 without TF32 for the comparisons; the settings are restored after
+    saved_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst = hold_calls(calls, gen, label="decode path: ")
+        model32 = UNetDenoiser(model.config, dtype=torch.float32, device="cuda")
+        model32.load_state_dict(model.state_dict(), strict=True)
+        model32 = model32.to(memory_format=torch.channels_last).eval()
+        with torch.inference_mode():
+            _, f32 = model32(x, t, return_features=True)
+            k32 = model32(x, t2, mode="decode", cached=f32)
+            k16 = model(x, t2, mode="decode", cached=f32)
+            with plain_path():
+                p32 = model32(x, t2, mode="decode", cached=f32)
+                p16 = model(x, t2, mode="decode", cached=f32)
+            own = {}
+            with cudnn_deterministic():
+                for name, m in (("fp32", model32), ("bf16", model)):
+                    full, f = m(x, t, return_features=True)
+                    dec = m(x, t, mode="decode", cached=f)
+                    own[name] = bool(torch.equal(dec, full))
+                    if not all(v.dtype == m.dtype for v in (f[0], *f[1])):
+                        raise AssertionError(f"{name}: the cache is not in the compute dtype")
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    err = {"fp32_kernel_vs_plain": rel(k32, p32), "bf16_kernel_vs_fp32": rel(k16, p32),
+           "bf16_plain_vs_fp32": rel(p16, p32), "bf16_kernel_vs_plain": rel(k16, p16)}
+    log(f"[solvers] decode forward on the card, relative RMS errors: {err}; decode of its "
+        f"own features equals the full forward: {own}")
+    if not all(own.values()):
+        raise AssertionError(f"decode of a forward's own features differs from it: {own}")
+    if not (torch.isfinite(k16).all() and torch.isfinite(k32).all()):
+        raise AssertionError("decode forward on the kernels is not finite")
+    if err["fp32_kernel_vs_plain"] > 1e-5:
+        raise AssertionError(f"decode fp32 kernels vs plain: {err}")
+    if err["bf16_kernel_vs_fp32"] > 1.25 * err["bf16_plain_vs_fp32"] + 1e-3:
+        raise AssertionError(f"decode bf16 kernel path less accurate than plain: {err}")
+    del model32
+    times = {}
+    with torch.inference_mode():
+        for name, fn in (("full", lambda: model(x, t)),
+                         ("decode", lambda: model(x, t2, mode="decode", cached=feats))):
+            wall = cuda_time_ms(fn, iters=20)
+            dev, table = device_ms(fn, iters=5)
+            times[name] = dict(wall_ms=wall, device_ms=dev,
+                               idle_share=max(0.0, 1.0 - dev / wall),
+                               gn_silu_fwd_ms=sum(ms for k, ms, _ in table
+                                                  if "gn_silu_fwd" in k))
+            log(f"[solvers] {name} forward batch {BATCH} bf16: wall {wall:.3f} ms, device "
+                f"{dev:.3f} ms (gn_silu_fwd {times[name]['gn_silu_fwd_ms']:.4f}), device "
+                f"idle {100 * times[name]['idle_share']:.1f}%")
+    return dict(errors=err, own_features_equal=own, worst=worst, times=times,
+                gn_calls=len(gn), gn_smem=dec_smem), dec_smem
+
+
+def _png_ok(name, path, out, n):
+    """The grid PNG at ``path`` against make_grid(nrow=grid_nrow(n)):
+    ``out`` is the entry point's return, the (n, 64, 64, 3) [0, 1] batch or
+    its grid; finite, in [0, 1], and the PNG its 8-bit image."""
+    import numpy as np
+    from PIL import Image
+
+    from ddpm_diffusion_model_tpu_torch.utils.images import grid_nrow, make_grid
+
+    shape = make_grid(np.zeros((n, 64, 64, 3), np.float32), nrow=grid_nrow(n)).shape
+    grid = make_grid(out, nrow=grid_nrow(n)) if out.ndim == 4 else out
+    png = np.asarray(Image.open(path))
+    want = np.clip(grid * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    if (out.ndim == 4 and out.shape != (n, 64, 64, 3)) or grid.shape != shape \
+            or not np.isfinite(grid).all() or grid.min() < 0.0 or grid.max() > 1.0 \
+            or png.shape != shape or not np.array_equal(png, want):
+        raise AssertionError(f"{name}: output {out.shape} [{out.min()}, {out.max()}], "
+                             f"PNG {png.shape} (make_grid gives {shape})")
+    return list(shape)
+
+
+def _solver_http(model, sched, ema_sd, dec_smem):
+    """POST /edit and sampler=dpmpp through make_server over the EMA
+    weights: coalescing per sampler, /edit's answers, /healthz."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.serving import SamplerService, make_server
+    from ddpm_diffusion_model_tpu_torch.utils.images import encode_png
+
+    served = UNetDenoiser(model.config, dtype=torch.bfloat16, device="cuda")
+    served.load_state_dict(ema_sd, strict=True)
+    svc = SamplerService(served, sched, 64, device="cuda")
+    svc.COALESCE_WINDOW_S = SOLVER_PORT_WINDOW_S
+    seen = _forward_modes(svc.model)
+    server = make_server(svc, "127.0.0.1", 0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    res = {}
+
+    def sample(seed, sampler, n=8, steps=25):
+        code, hdr, body = _get(f"{base}/sample?n={n}&steps={steps}&seed={seed}"
+                               f"&sampler={sampler}&format=npy")
+        x = np.load(io.BytesIO(body))
+        if code != 200 or hdr["X-Used-N"] != str(n) or x.shape != (n, 64, 64, 3) \
+                or not np.isfinite(x).all():
+            raise AssertionError(f"sampler={sampler} seed {seed}: {code} {x.shape}")
+        return x
+
+    def post(body):
+        req = urllib.request.Request(base + "/edit", data=json.dumps(body).encode(),
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, dict(r.headers), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read()
+
+    try:
+        health = json.loads(_get(base + "/healthz")[2])
+        if health["edit_modes"] != ["img2img", "inpaint"]:
+            raise AssertionError(f"/healthz: {health}")
+
+        def dpm_pair():
+            m0 = svc.metrics()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+                futs = {s: ex.submit(sample, s, "dpmpp") for s in (1, 2)}
+                merged = {s: f.result() for s, f in futs.items()}
+            return merged, svc.metrics()["multi_request_batches"] - m0["multi_request_batches"]
+
+        (merged, multi), sec_pair, counts, full, dec = _window(seen, dpm_pair)
+        if multi != 1:
+            raise AssertionError(f"two concurrent sampler=dpmpp requests made {multi} "
+                                 "multi-request batches, expected 1")
+        launches = check_launches("HTTP dpmpp pair", counts, full, dec, dec_smem)
+        solo_err = max(float(np.abs(sample(s, "dpmpp") - merged[s]).max()) for s in (1, 2))
+        if solo_err > 2e-2:
+            raise AssertionError(f"coalesced dpmpp vs solo: max diff {solo_err}")
+        log(f"[solvers] HTTP: 2 concurrent sampler=dpmpp requests (n=8, 25 steps) coalesced "
+            f"into 1 batch of 16 in {sec_pair:.2f} s ({full} forwards, launches "
+            f"{launches['gn_silu_fwd']}/{launches['flash_attn_fwd']}); vs their solo re-runs "
+            f"max |diff| {solo_err:.3e} in [0,1] pixels")
+        m0 = svc.metrics()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+            fd = ex.submit(sample, 3, "ddim")
+            fp = ex.submit(sample, 3, "dpmpp")
+            fd.result(), fp.result()
+        m1 = svc.metrics()
+        mixed = (m1["coalesced_batches"] - m0["coalesced_batches"],
+                 m1["multi_request_batches"] - m0["multi_request_batches"])
+        if mixed != (2, 0):
+            raise AssertionError(f"a DDIM and a DPM request in one window: (batches, "
+                                 f"multi-request batches) {mixed}, expected (2, 0)")
+        log("[solvers] HTTP: a DDIM and a DPM request in one window ran as 2 batches, "
+            "none shared")
+        face = _faces(1)[0] * 0.5 + 0.5
+        img = base64.b64encode(encode_png(face)).decode()
+        edits = {}
+        for mode, body in (("img2img", {"mode": "img2img", "strength": STRENGTH, "n": 4,
+                                        "steps": 50}),
+                           ("inpaint", {"mode": "inpaint", "box": list(INPAINT_BOX), "n": 4,
+                                        "steps": 10, "resamples": RESAMPLES})):
+            t0 = time.perf_counter()
+            code, hdr, out = post(dict(body, image=img, seed=7, format="npy"))
+            sec = time.perf_counter() - t0
+            x = np.load(io.BytesIO(out)) if code == 200 else None
+            if (code != 200 or hdr.get("X-Used-N") != "4"
+                    or hdr.get("X-Used-Steps") != str(body["steps"])
+                    or x.shape != (4, 64, 64, 3) or not np.isfinite(x).all()):
+                raise AssertionError(f"POST /edit {mode}: {code} {hdr} {out[:200]!r}")
+            edits[mode] = dict(code=code, seconds=sec, used_n=hdr["X-Used-N"],
+                               used_steps=hdr["X-Used-Steps"])
+            log(f"[solvers] HTTP: POST /edit {mode} -> 200, X-Used-N {hdr['X-Used-N']}, "
+                f"X-Used-Steps {hdr['X-Used-Steps']}, {sec:.2f} s")
+        code, _h, out = post({"image": img, "mode": "inpaint", "box": [40, 8, 20, 30]})
+        if code != 400 or "out of bounds" not in json.loads(out)["error"]:
+            raise AssertionError(f"POST /edit with a bad box: {code} {out[:200]!r}")
+        edits["bad_box"] = dict(code=code)
+        log("[solvers] HTTP: POST /edit with a bad box -> 400")
+        metrics = svc.metrics()
+        if metrics["edits"] != 2:
+            raise AssertionError(f"/metrics edits {metrics['edits']}, expected 2")
+        res.update(dpmpp_pair=dict(seconds=sec_pair, launches=launches, forwards=full,
+                                   solo_err=solo_err), mixed_batches=mixed, edits=edits,
+                   healthz_edit_modes=health["edit_modes"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+    return res
+
+
+def _faces(n):
+    from ddpm_diffusion_model_tpu_torch.data import blob_faces_array
+
+    return blob_faces_array(n, img_size=64, seed=11)
+
+
+def phase_solvers(preset, ckpt_dir, tmp):
+    """DPM-Solver++, encoder-cached DDIM and editing on celeba64_attn at
+    full width from the run's _last checkpoint (EMA weights), bf16, T =
+    1000, batch 16: (a) the decode forward, kernels against plain; (b)
+    DPM-Solver++(2M) 20 steps, ODE and SDE; (c) encoder-cached DDIM-50 at
+    refresh_every=2 against plain DDIM-50 from the same x_T; (d) img2img at
+    strength 0.6 and inpaint with a box at resamples=2; (e) sampler=dpmpp
+    and POST /edit through make_server; (f) the CLI commands.  Every path's
+    launches exact, its counts set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.ops import make_schedule
+    from ddpm_diffusion_model_tpu_torch.sampling import (box_mask, ddim_sample,
+                                                         ddim_sample_fast,
+                                                         dpmpp_infer_sample,
+                                                         img2img_infer_sample,
+                                                         inpaint_infer_sample,
+                                                         to_unit_interval)
+    from ddpm_diffusion_model_tpu_torch.training import init_train_state, load_checkpoint
+    from ddpm_diffusion_model_tpu_torch.utils.images import save_image
+
+    last = os.path.join(ckpt_dir, f"{RUN_PRESET}_last")
+    model = UNetDenoiser(preset.model, dtype=torch.bfloat16, device="cuda")
+    model = model.to(memory_format=torch.channels_last)
+    state, meta = load_checkpoint(last, init_train_state(model, preset.train)[0],
+                                  components=("params", "ema_params"))
+    ema_sd = {k: v.detach().clone() for k, v in state.ema_params.items()}
+    model.load_state_dict(ema_sd, strict=True)
+    model.eval()
+    sched = make_schedule(preset.diffusion, device="cuda")
+    res = {"checkpoint_step": meta["global_step"]}
+
+    # (a) the decode forward
+    res["decode"], dec_smem = _decode_checks(model)
+    worst = res["decode"].pop("worst")
+    seen = _forward_modes(model)
+    S, n = preset.img_size, SAMPLE_N
+    kw = dict(n=n, seed=3, device="cuda")
+
+    # (b) DPM-Solver++(2M), ODE and SDE
+    paths = {}
+    for name, sde in (("dpmpp", False), ("dpmpp_sde", True)):
+        png = os.path.join(tmp, f"{name}.png")
+        grid, sec, counts, full, dec = _window(seen, lambda: dpmpp_infer_sample(
+            model, None, sched, img_size=S, steps=SOLVER_STEPS, sde=sde, out_path=png, **kw))
+        if (full, dec) != (SOLVER_STEPS - 1, 0):
+            raise AssertionError(f"{name}: {full} full and {dec} decode forwards")
+        launches = check_launches(name, counts, full, dec, dec_smem)
+        paths[name] = dict(seconds=sec, forwards=full, forwards_per_s=full / sec,
+                           launches=launches, png=_png_ok(name, png, grid, n))
+        log(f"[solvers] {name} {SOLVER_STEPS} steps, n={n}: {sec:.2f} s, {full} forwards "
+            f"({full / sec:.1f}/s); launches gn_silu_fwd {launches['gn_silu_fwd']}, "
+            f"flash_attn_fwd {launches['flash_attn_fwd']}; PNG {paths[name]['png']} as "
+            "grid_nrow/make_grid give")
+
+    # (c) encoder-cached DDIM-50 against plain DDIM-50 from the same x_T
+    ddim_kw = dict(img_size=S, steps=DDIM_STEPS, **kw)
+    cached = lambda p=None: ddim_sample_fast(  # noqa: E731
+        model, None, sched, refresh_every=REFRESH_EVERY, schedule_kind="t_linear",
+        save_path=p, **ddim_kw)
+    plain = lambda: ddim_sample(model, None, sched, schedule="t_linear",  # noqa: E731
+                                **ddim_kw)
+    png = os.path.join(tmp, "ddim_cached.png")
+    xc, sec_c, counts, full, dec = _window(seen, lambda: cached(png))
+    want = (-(-(DDIM_STEPS - 1) // REFRESH_EVERY), (DDIM_STEPS - 1) // REFRESH_EVERY)
+    if (full, dec) != want:
+        raise AssertionError(f"cached DDIM: {full} full and {dec} decode forwards, "
+                             f"expected {want}")
+    paths["ddim_cached"] = dict(seconds=sec_c, full=full, decode=dec,
+                                launches=check_launches("cached DDIM", counts, full, dec,
+                                                        dec_smem),
+                                png=_png_ok("cached DDIM", png, xc, n))
+    xp, sec_p, counts, full, dec = _window(seen, plain)
+    if (full, dec) != (DDIM_STEPS - 1, 0):
+        raise AssertionError(f"plain DDIM: {full} full and {dec} decode forwards")
+    paths["ddim_plain"] = dict(seconds=sec_p, full=full,
+                               launches=check_launches("plain DDIM", counts, full, dec,
+                                                       dec_smem))
+    diff = float(np.abs(xc - xp).max())
+    mean_diff = float(np.abs(xc - xp).mean())
+    with torch.inference_mode():
+        dev_c, _ = device_ms(lambda: cached(), iters=1, warmup=0)
+        dev_p, _ = device_ms(plain, iters=1, warmup=0)
+    paths["ddim_cached"].update(device_ms=dev_c, max_abs_diff_vs_plain=diff,
+                                mean_abs_diff_vs_plain=mean_diff)
+    paths["ddim_plain"].update(device_ms=dev_p)
+    log(f"[solvers] DDIM-50 n={n}: encoder-cached 1/{REFRESH_EVERY} wall {sec_c:.2f} s, "
+        f"device {dev_c:.1f} ms, {paths['ddim_cached']['full']} full + "
+        f"{paths['ddim_cached']['decode']} decode forwards, launches "
+        f"{paths['ddim_cached']['launches']['gn_silu_fwd']}/"
+        f"{paths['ddim_cached']['launches']['flash_attn_fwd']}; plain wall {sec_p:.2f} s, "
+        f"device {dev_p:.1f} ms, launches {paths['ddim_plain']['launches']['gn_silu_fwd']}/"
+        f"{paths['ddim_plain']['launches']['flash_attn_fwd']}; cached vs plain max |diff| "
+        f"{diff:.4f} (mean {mean_diff:.5f}) in [0,1] pixels (bar {CACHED_DIFF_BOUND})")
+    if diff > CACHED_DIFF_BOUND:
+        raise AssertionError(f"cached vs plain DDIM-50: max |diff| {diff} > "
+                             f"{CACHED_DIFF_BOUND}")
+
+    # (d) img2img and inpaint of blob faces
+    faces = _faces(n)
+    png = os.path.join(tmp, "img2img.png")
+    x, sec, counts, full, dec = _window(seen, lambda: img2img_infer_sample(
+        model, None, sched, faces, strength=STRENGTH, steps=DDIM_STEPS, out_path=png,
+        **kw))
+    rungs = len(ddim_ladder(sched, "t_linear"))
+    if (full, dec) != (int(round(STRENGTH * rungs)) - 1, 0):
+        raise AssertionError(f"img2img: {full} full and {dec} decode forwards")
+    paths["img2img"] = dict(seconds=sec, forwards=full,
+                            launches=check_launches("img2img", counts, full, dec, dec_smem),
+                            png=_png_ok("img2img", png, x, n))
+    mask = box_mask(S, INPAINT_BOX)
+    png = os.path.join(tmp, "inpaint.png")
+    x, sec, counts, full, dec = _window(seen, lambda: inpaint_infer_sample(
+        model, None, sched, faces, mask, steps=DDIM_STEPS, resamples=RESAMPLES,
+        out_path=png, **kw))
+    if (full, dec) != ((rungs - 1) * RESAMPLES, 0):
+        raise AssertionError(f"inpaint: {full} full and {dec} decode forwards")
+    keep = np.broadcast_to(mask, x.shape) == 1.0
+    known = to_unit_interval(torch.from_numpy(faces).cuda()).cpu().numpy()
+    if not np.array_equal(x[keep], known[keep]):
+        raise AssertionError("inpaint: the known region differs from the input")
+    paths["inpaint"] = dict(seconds=sec, forwards=full, known_region_bit_equal=True,
+                            launches=check_launches("inpaint", counts, full, dec, dec_smem),
+                            png=_png_ok("inpaint", png, x, n))
+    for name in ("img2img", "inpaint"):
+        p = paths[name]
+        log(f"[solvers] {name} n={n}: {p['seconds']:.2f} s, {p['forwards']} forwards, "
+            f"launches {p['launches']['gn_silu_fwd']}/{p['launches']['flash_attn_fwd']}"
+            + ("; known region bit-equal to the input" if name == "inpaint" else ""))
+
+    # (e) HTTP
+    res["http"] = _solver_http(model, sched, ema_sd, dec_smem)
+
+    # (f) the CLI commands from the checkpoint
+    save_image(faces[0] * 0.5 + 0.5, os.path.join(tmp, "face.png"))
+    cli_jobs = [("sample-dpmpp", ["--steps", str(SOLVER_STEPS)], SOLVER_STEPS - 1, 0),
+                ("sample-dpmpp", ["--steps", str(SOLVER_STEPS), "--sde"], SOLVER_STEPS - 1, 0),
+                ("img2img", ["--init", "face.png", "--strength", str(STRENGTH)],
+                 int(round(STRENGTH * rungs)) - 1, 0),
+                ("inpaint", ["--init", "face.png", "--box", ",".join(map(str, INPAINT_BOX)),
+                             "--resamples", str(RESAMPLES)], (rungs - 1) * RESAMPLES, 0),
+                ("sample-ddim", ["--steps", str(DDIM_STEPS), "--refresh-every",
+                                 str(REFRESH_EVERY)], *want)]
+    from PIL import Image
+
+    from ddpm_diffusion_model_tpu_torch.utils.images import grid_nrow, make_grid
+
+    shape = make_grid(np.zeros((n, S, S, 3), np.float32), nrow=grid_nrow(n)).shape
+    cmds, full_all, dec_all = [], 0, 0
+    reset_counts()
+    for i, (cmd, extra, full, dec) in enumerate(cli_jobs):
+        png = os.path.join(tmp, f"cli_{i}.png")
+        t0 = time.perf_counter()
+        with _cwd(tmp):
+            out = run_cli([cmd, "--preset", RUN_PRESET, "--ckpt", last, "--ema", "--n",
+                           str(n), *extra, "--out", png])
+        sec = time.perf_counter() - t0
+        got = np.asarray(Image.open(png)).shape
+        if got != shape:
+            raise AssertionError(f"cli {cmd}: PNG {got}, make_grid gives {shape}")
+        full_all, dec_all = full_all + full, dec_all + dec
+        cmds.append(dict(cmd=" ".join([cmd, *extra]), exit=0, seconds=sec, png=list(got),
+                         said=out.strip().splitlines()[-1]))
+        log(f"[solvers] cli {cmd} {' '.join(extra)}: exit 0, PNG {got} as make_grid gives, "
+            f"{sec:.2f} s")
+    res["cli"] = dict(commands=cmds, launches=check_launches(
+        "the CLI commands", read_counts(), full_all, dec_all, dec_smem))
+    res["paths"] = paths
+    launches = {k: {p: v["launches"][k] for p, v in paths.items()} for k in KERNELS}
+    for k in KERNELS:
+        launches[k].update(http_dpmpp_pair=res["http"]["dpmpp_pair"]["launches"][k],
+                           cli=res["cli"]["launches"][k])
+    res["launches"] = launches
+    log(f"[solvers] launches by path (gn_silu_fwd, flash_attn_fwd): " + ", ".join(
+        f"{p} {launches['gn_silu_fwd'][p]}/{launches['flash_attn_fwd'][p]}"
+        for p in launches["gn_silu_fwd"]))
+    return res, worst
+
+
 def _resblocks(model):
     from ddpm_diffusion_model_tpu_torch.models.blocks import ResBlock
 
@@ -2383,8 +2882,8 @@ SOURCE = {"gn_silu_fwd": "gn_silu.cu", "gn_silu_bwd": "gn_silu.cu",
           "flash_attn_bwd_dkv": "flash_attn_bwd.cu"}
 
 
-PHASES = ("kernels", "unet", "serving", "train", "run", "sample", "remat", "hq256", "data",
-          "times")
+PHASES = ("kernels", "unet", "serving", "train", "run", "sample", "solvers", "remat", "hq256",
+          "data", "times")
 
 
 def main(argv=None) -> int:
@@ -2431,7 +2930,7 @@ def main(argv=None) -> int:
         train = phase_train_epoch(preset, model, images)
     phase_s = {}
     with tempfile.TemporaryDirectory(dir=str(REPO / "build")) as tmp:
-        if only & {"run", "sample"}:
+        if only & {"run", "sample", "solvers"}:
             t0 = time.perf_counter()
             run, ckpt_dir = phase_run(preset, base_sd, images, tmp)
             phase_s["run"] = time.perf_counter() - t0
@@ -2439,6 +2938,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             sample = phase_sample(preset, ckpt_dir, tmp)
             phase_s["sample"] = time.perf_counter() - t0
+        if "solvers" in only:
+            t0 = time.perf_counter()
+            solvers, solvers_worst = phase_solvers(preset, ckpt_dir, tmp)
+            phase_s["solvers"] = time.perf_counter() - t0
     if "remat" in only:
         t0 = time.perf_counter()
         remat = phase_remat(preset, base_sd, images)
@@ -2469,7 +2972,7 @@ def main(argv=None) -> int:
         row = {
             "name": k, "route": "cuda", "source": f"{PKG}/csrc/{SOURCE[k]}",
             "replaces": REPLACES[k], "launches": train["launches"][k],
-            "max_abs_err": max(worst[k], hq["worst"][k]), "ms": r["ms"],
+            "max_abs_err": max(worst[k], hq["worst"][k], solvers_worst[k]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["flops_ms"] else "operations",
             "library_ms": r["library_ms"],
@@ -2480,7 +2983,9 @@ def main(argv=None) -> int:
                                  "hq256": hq["launches"][k],
                                  "data_cli_train": data["cli_train"]["host"]["launches"][k],
                                  "data_cli_train_cached":
-                                     data["cli_train"]["device_cache"]["launches"][k]},
+                                     data["cli_train"]["device_cache"]["launches"][k],
+                                 **{f"solvers_{p}": v
+                                    for p, v in solvers["launches"][k].items()}},
         }
         if k in tot:  # the forward kernels also serve
             s = tot[k]
@@ -2502,7 +3007,7 @@ def main(argv=None) -> int:
                     "gn_bwd_routes_ms": routes, "gn_fwd_routes_ms": fwd_routes,
                     "run": run, "sample": sample, "remat": remat,
                     "hq256": {k: v for k, v in hq.items() if k != "worst"},
-                    "data": data,
+                    "data": data, "solvers": solvers,
                     "phase_seconds": phase_s,
                     "profiler_retraces": TRACE_RETRIES, "card": smi}))
     log(nvidia_smi_line())

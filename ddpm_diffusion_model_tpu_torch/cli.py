@@ -6,6 +6,9 @@ modules are ported:
     python -m ddpm_diffusion_model_tpu_torch.cli train --preset celeba64_attn --data zip --zip-path faces.zip
     python -m ddpm_diffusion_model_tpu_torch.cli sample-ddpm --ckpt checkpoints/celeba64_attn_last --n 36
     python -m ddpm_diffusion_model_tpu_torch.cli sample-ddim --ckpt checkpoints/celeba64_attn_last --steps 50
+    python -m ddpm_diffusion_model_tpu_torch.cli sample-dpmpp --ckpt checkpoints/celeba64_attn_last --steps 20
+    python -m ddpm_diffusion_model_tpu_torch.cli img2img --ckpt checkpoints/celeba64_attn_last --init face.png
+    python -m ddpm_diffusion_model_tpu_torch.cli inpaint --ckpt checkpoints/celeba64_attn_last --init face.png --box 16,16,48,48
     python -m ddpm_diffusion_model_tpu_torch.cli strip --ckpt checkpoints/celeba64_attn_last --sampler ddim
     python -m ddpm_diffusion_model_tpu_torch.cli eval --ckpt checkpoints/celeba64_attn_last --data blobs
     python -m ddpm_diffusion_model_tpu_torch.cli info --preset celebahq256
@@ -15,8 +18,8 @@ The commands and flags are the JAX CLI's, plus ``--device`` (default
 runs unless it is asked for).  Checkpoints are the port's directories
 (``training/checkpoint.py``), not Orbax.  Flags whose modules are not
 ported (meshes, the sharded cache, latent diffusion, class conditioning,
-encoder-cached DDIM, the likelihood, ``--data hf``) exit with "... is not
-ported yet"; the JAX CLI's other commands come with their modules.
+the likelihood, ``--data hf``) exit with "... is not ported yet"; the JAX
+CLI's other commands come with their modules.
 """
 
 from __future__ import annotations
@@ -250,8 +253,6 @@ def _check_sampling_flags(args):
         _not_ported("--vae (latent diffusion)")
     if getattr(args, "sharded", False):
         _not_ported("--sharded (sampling over several cards)")
-    if getattr(args, "refresh_every", 0) > 1:
-        _not_ported("--refresh-every (encoder-cached DDIM)")
     if getattr(args, "class_id", None) is not None:
         _not_ported("--class-id (class-conditional sampling)")
     if getattr(args, "guidance", 1.0) != 1.0:
@@ -272,17 +273,86 @@ def cmd_sample_ddpm(args):
 
 
 def cmd_sample_ddim(args):
-    from .sampling import ddim_infer_sample
+    from .sampling import ddim_infer_sample, ddim_sample_fast
 
     _check_sampling_flags(args)
     exp = _exp_from_args(args)
     model, sched, state, _meta = _load_state(args.ckpt, exp, args.device)
+    if args.refresh_every > 1:
+        # encoder-cached: decoder-only reuse steps between encoder refreshes
+        ddim_sample_fast(model, None, sched, n=args.n, img_size=exp.img_size,
+                         ema_params=state.ema_params if args.ema else None,
+                         save_path=args.out, seed=args.seed, steps=args.steps,
+                         eta=args.eta, schedule_kind=args.schedule,
+                         refresh_every=args.refresh_every, device=args.device)
+        print(f"[INFER-DDIM] grid -> {args.out} (steps={args.steps},"
+              f" encoder-cached 1/{args.refresh_every})")
+        return
     ddim_infer_sample(model, None, sched, n=args.n, img_size=exp.img_size,
                       ema_params=state.ema_params if args.ema else None,
                       out_path=args.out, seed=args.seed, steps=args.steps, eta=args.eta,
                       schedule_kind=args.schedule, save_individual=args.individual,
                       device=args.device)
     print(f"[INFER-DDIM] grid -> {args.out} (steps={args.steps}, eta={args.eta})")
+
+
+def cmd_sample_dpmpp(args):
+    from .sampling import dpmpp_infer_sample
+
+    _check_sampling_flags(args)
+    exp = _exp_from_args(args)
+    model, sched, state, _meta = _load_state(args.ckpt, exp, args.device)
+    dpmpp_infer_sample(model, None, sched, n=args.n, img_size=exp.img_size,
+                       ema_params=state.ema_params if args.ema else None,
+                       out_path=args.out, seed=args.seed, steps=args.steps,
+                       schedule_kind=args.schedule, save_individual=args.individual,
+                       sde=args.sde, device=args.device)
+    variant = "SDE" if args.sde else ""
+    print(f"[INFER-DPM++{variant}] grid -> {args.out} (steps={args.steps})")
+
+
+def cmd_img2img(args):
+    from .sampling import img2img_infer_sample
+    from .utils.images import load_image
+
+    _check_sampling_flags(args)
+    exp = _exp_from_args(args)
+    model, sched, state, _ = _load_state(args.ckpt, exp, args.device)
+    init01 = load_image(args.init, size=exp.img_size)
+    img2img_infer_sample(model, None, sched, init01 * 2.0 - 1.0, n=args.n,
+                         strength=args.strength, steps=args.steps, eta=args.eta,
+                         seed=args.seed, out_path=args.out,
+                         ema_params=state.ema_params if args.ema else None,
+                         device=args.device)
+    print(f"[IMG2IMG] grid -> {args.out} (strength={args.strength}, "
+          f"steps={args.steps})")
+
+
+def cmd_inpaint(args):
+    from .sampling import box_mask, inpaint_infer_sample
+    from .utils.images import load_image
+
+    # argument mistakes fail before the checkpoint loads
+    if (args.mask is None) == (args.box is None):
+        sys.exit("inpaint: pass exactly one of --mask PNG or --box x0,y0,x1,y1")
+    _check_sampling_flags(args)
+    exp = _exp_from_args(args)
+    model, sched, state, _ = _load_state(args.ckpt, exp, args.device)
+    init01 = load_image(args.init, size=exp.img_size)
+    if args.mask is not None:
+        # white (1) = keep, black (0) = generate
+        m = load_image(args.mask, size=exp.img_size, grayscale=True)
+        mask = (m >= 0.5).astype("float32")
+    else:
+        mask = box_mask(exp.img_size, [int(v) for v in args.box.split(",")])
+    inpaint_infer_sample(model, None, sched, init01 * 2.0 - 1.0, mask, n=args.n,
+                         steps=args.steps, eta=args.eta, resamples=args.resamples,
+                         seed=args.seed, out_path=args.out,
+                         ema_params=state.ema_params if args.ema else None,
+                         device=args.device)
+    frac = float(1.0 - mask.mean())
+    print(f"[INPAINT] grid -> {args.out} (steps={args.steps}, "
+          f"resamples={args.resamples}, generated={frac:.0%} of pixels)")
 
 
 def cmd_strip(args):
@@ -447,9 +517,60 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--individual", action="store_true")
     sp.add_argument("--sharded", action="store_true", help="not ported yet")
     sp.add_argument("--refresh-every", type=int, default=0, metavar="K",
-                    help="not ported yet")
+                    help="encoder-cached fast DDIM: recompute encoder features every "
+                         "K steps, decoder-only between (0/1 = full model every step)")
     cfg_args(sp)
     sp.set_defaults(fn=cmd_sample_ddim)
+
+    sp = sub.add_parser("sample-dpmpp",
+                        help="DPM-Solver++(2M) grid: DDIM-50 quality in ~20 steps")
+    common(sp, ckpt_required=True)
+    sp.add_argument("--n", type=int, default=36)
+    sp.add_argument("--steps", type=int, default=20)
+    sp.add_argument("--schedule", default="t_linear",
+                    choices=["t_linear", "linear", "alpha_bar_cosine", "cosine", "karras"])
+    sp.add_argument("--out", default="samples_dpmpp.png")
+    sp.add_argument("--individual", action="store_true")
+    sp.add_argument("--sharded", action="store_true", help="not ported yet")
+    sp.add_argument("--sde", action="store_true",
+                    help="stochastic SDE-DPM-Solver++(2M): fresh noise each step")
+    cfg_args(sp)
+    sp.set_defaults(fn=cmd_sample_dpmpp)
+
+    sp = sub.add_parser("img2img",
+                        help="SDEdit: noise a real image to strength*T and denoise it back")
+    common(sp, ckpt_required=True)
+    sp.add_argument("--init", required=True,
+                    help="input image (center-cropped + resized to the model resolution)")
+    sp.add_argument("--n", type=int, default=9,
+                    help="variations to draw (grid rows get independent noise)")
+    sp.add_argument("--strength", type=float, default=0.6,
+                    help="(0,1]: fraction of the ladder to run; small = faithful edit, "
+                         "1.0 = near-from-scratch")
+    sp.add_argument("--steps", type=int, default=50,
+                    help="FULL-ladder step count before truncation")
+    sp.add_argument("--eta", type=float, default=0.0)
+    sp.add_argument("--out", default="samples_img2img.png")
+    cfg_args(sp)
+    sp.set_defaults(fn=cmd_img2img)
+
+    sp = sub.add_parser("inpaint",
+                        help="regenerate a masked region of a real image (RePaint-style "
+                             "replace + optional resampling; mask=white kept exactly)")
+    common(sp, ckpt_required=True)
+    sp.add_argument("--init", required=True, help="input image")
+    sp.add_argument("--mask", help="grayscale PNG: white = keep, black = generate")
+    sp.add_argument("--box", metavar="x0,y0,x1,y1",
+                    help="generate inside this pixel box instead of a mask file")
+    sp.add_argument("--n", type=int, default=9)
+    sp.add_argument("--steps", type=int, default=50)
+    sp.add_argument("--eta", type=float, default=0.0)
+    sp.add_argument("--resamples", type=int, default=1,
+                    help="RePaint harmonization repeats per step (1 = plain replace "
+                         "method)")
+    sp.add_argument("--out", default="samples_inpaint.png")
+    cfg_args(sp)
+    sp.set_defaults(fn=cmd_inpaint)
 
     sp = sub.add_parser("strip")
     common(sp, ckpt_required=True)

@@ -11,12 +11,14 @@ The module tree registers the reference's torch names and order
 ``ups.L.blocks.n`` / ``ups.L.up.conv``), so reference checkpoints load
 with ``load_state_dict(strict=True)``.
 
-This slice ports ``mode="full"`` with ``y=None``, for sampling and
-training: ``.train()`` / ``.eval()`` take the place of ``deterministic``,
-the ResBlocks' dropout draws from the ``generator`` the forward is given,
-and ``remat`` (``True`` or ``"masks"``) rematerializes the ResBlocks, not
-the AttnBlocks, as in JAX.  Class embeddings, ``cond_channels`` and the
-encoder-cached ``mode="decode"`` come later.
+The port runs ``y=None``, for sampling and training: ``.train()`` /
+``.eval()`` take the place of ``deterministic``, the ResBlocks' dropout
+draws from the ``generator`` the forward is given, and ``remat`` (``True``
+or ``"masks"``) rematerializes the ResBlocks, not the AttnBlocks, as in
+JAX.  ``mode="decode"`` with ``cached=(mid, skips)`` from an earlier
+``return_features=True`` forward runs the decoder and head only, the
+encoder-cached fast sampler's reuse step.  Class embeddings and
+``cond_channels`` come later.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from ..utils.device import resolve_device
 from .blocks import (AttnBlock, Downsample, ResBlock, Upsample, conv,
                      gn_silu_nchw, group_norm)
 from .embeddings import TimeMLP, sinusoidal_time_embedding
+
+#: the encoder's output a decode forward reuses: (mid, one skip per level)
+Features = Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 __all__ = ["UNetConfig", "UNetDenoiser", "unet_64x64_config",
            "unet_64x64_low_config", "unet_256x256_config", "count_params"]
@@ -169,26 +174,45 @@ class UNetDenoiser(nn.Module):
         self.ups = nn.ModuleList(ups)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, *, mode: str = "full",
+                cached: Optional[Features] = None, return_features: bool = False):
         """``generator`` feeds the ResBlocks' dropout in training mode
-        (``None``: torch's default generator of the device)."""
+        (``None``: torch's default generator of the device).
+
+        ``mode="full"`` runs the whole network; with ``return_features``
+        it returns ``(eps, (mid, skips))``: the bottleneck's output and one
+        skip per level, taken before its downsample, NCHW channels_last in
+        the compute dtype (JAX's are NHWC).  ``mode="decode"`` skips
+        ``in_conv``, the encoder and the bottleneck: the decoder and head
+        run on ``cached`` (cast to the compute dtype) with the fresh time
+        embedding of ``t``; ``x`` gives only the output dtype."""
         cfg, dt = self.config, self.dtype
         t_emb = self.time_mlp(sinusoidal_time_embedding(t, cfg.time_embed_dim))
         in_dtype = x.dtype
-        # NHWC memory viewed as NCHW is channels_last: a no-op for contiguous x
-        h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        h = conv(h, self.in_conv, dt)
+        if mode == "decode":
+            if cached is None:
+                raise ValueError('mode="decode" requires cached=(mid, skips)')
+            h, skips = cached
+            h = h.to(dt)
+            skips = [s.to(dt) for s in skips]
+        elif mode == "full":
+            # NHWC memory viewed as NCHW is channels_last: a no-op for contiguous x
+            h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            h = conv(h, self.in_conv, dt)
 
-        skips = []
-        for level in self.downs:
-            for blk in level.blocks:
-                h = blk(h, t_emb, generator) if isinstance(blk, ResBlock) else blk(h)
-            skips.append(h)  # one skip per level, before the downsample
-            h = level.down(h)
+            skips = []
+            for level in self.downs:
+                for blk in level.blocks:
+                    h = blk(h, t_emb, generator) if isinstance(blk, ResBlock) else blk(h)
+                skips.append(h)  # one skip per level, before the downsample
+                h = level.down(h)
 
-        h = self.mid[0](h, t_emb, generator)
-        h = self.mid[1](h)
-        h = self.mid[2](h, t_emb, generator)
+            h = self.mid[0](h, t_emb, generator)
+            h = self.mid[1](h)
+            h = self.mid[2](h, t_emb, generator)
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        features = (h, tuple(skips)) if return_features else None
 
         for level in self.ups:
             h = level.up(h)
@@ -202,8 +226,8 @@ class UNetDenoiser(nn.Module):
                 h = blk(h, t_emb, generator)
 
         h = gn_silu_nchw(h, self.out_norm)
-        out = conv(h, self.out_conv, torch.float32)
-        return out.permute(0, 2, 3, 1).to(in_dtype)
+        out = conv(h, self.out_conv, torch.float32).permute(0, 2, 3, 1).to(in_dtype)
+        return (out, features) if return_features else out
 
 
 def unet_64x64_config(**overrides) -> UNetConfig:

@@ -1,11 +1,13 @@
 """Sampling entry points over a U-Net: grids, per-image saves, denoise
-strips, and DDIM from explicit init noise (the serving coalescer's kernel).
+strips, and DDIM and DPM-Solver++ from explicit init noise (the serving
+coalescer's kernels).
 
 Counterpart of the unconditional part of
 ``ddpm_diffusion_model_tpu/sampling/inference.py``: ``cfg_eps_fn`` with
 ``y=None``, ``ddpm_sample``, ``ddim_sample``, ``ddpm_infer_sample``,
-``ddim_infer_sample``, ``render_denoise_strip``,
-``render_denoise_strip_ddim`` and ``_ddim_from_init_jit``.
+``ddim_infer_sample``, ``dpmpp_infer_sample``, ``render_denoise_strip``,
+``render_denoise_strip_ddim``, ``_ddim_from_init_jit`` and
+``_dpmpp_from_init_jit``.
 
 Every entry point takes ``(model, params, sched, ...)`` as the JAX one
 does: ``params`` None runs the model's own weights, a name -> tensor map
@@ -14,8 +16,7 @@ does: ``params`` None runs the model's own weights, a name -> tensor map
 The model runs in eval mode (no dropout) under ``torch.inference_mode``,
 and its mode is restored after.  x_T and every step's noise come from one
 ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``: 0).
-``class_id``/``guidance`` other than the defaults raise "not ported yet";
-DPM-Solver++ comes later.
+``class_id``/``guidance`` other than the defaults raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -32,11 +33,12 @@ from ..ops.schedules import DiffusionSchedule
 from ..utils.device import resolve_device
 from ..utils.images import grid_nrow, make_grid, save_image, save_image_grid
 from .loops import ddim_sample_loop, ddpm_sample_loop, to_unit_interval
+from .solvers import dpmpp2m_sample_loop, dpmpp2m_sde_sample_loop
 from .timesteps import build_ddim_schedule
 
-__all__ = ["cfg_eps_fn", "ddim_from_init", "ddpm_sample", "ddim_sample",
-           "ddpm_infer_sample", "ddim_infer_sample", "render_denoise_strip",
-           "render_denoise_strip_ddim"]
+__all__ = ["cfg_eps_fn", "ddim_from_init", "dpmpp_from_init", "ddpm_sample",
+           "ddim_sample", "ddpm_infer_sample", "ddim_infer_sample",
+           "dpmpp_infer_sample", "render_denoise_strip", "render_denoise_strip_ddim"]
 
 Params = Optional[Mapping[str, torch.Tensor]]
 Device = Union[str, torch.device]
@@ -125,6 +127,17 @@ def ddim_from_init(model: torch.nn.Module, sched: DiffusionSchedule,
     return out
 
 
+@torch.inference_mode()
+def dpmpp_from_init(model: torch.nn.Module, sched: DiffusionSchedule,
+                    x_init: torch.Tensor, timesteps: Sequence[int]) -> torch.Tensor:
+    """Deterministic DPM-Solver++(2M) (clip_x0) from EXPLICIT init noise:
+    like :func:`ddim_from_init`, row i depends only on row i of
+    ``x_init``."""
+    return dpmpp2m_sample_loop(sched, cfg_eps_fn(model, sched), x_init,
+                               timesteps=np.asarray(timesteps, dtype=np.int32),
+                               clip_x0=True)
+
+
 def ddpm_sample(model: torch.nn.Module, params: Params, sched: DiffusionSchedule,
                 n: int, img_size: int = 64, *, steps: Optional[int] = None,
                 seed: int = 1234, save_path: Optional[str] = None,
@@ -202,6 +215,35 @@ def ddim_infer_sample(model: torch.nn.Module, params: Params,
     ts = build_ddim_schedule(schedule_kind, steps, sched.T,
                              alphas_cumprod=_alphas_cumprod(sched), explicit=schedule_idx)
     x, _ = _ddim(model, p, sched, n, img_size, seed, device, ts, eta)
+    return _save_outputs(_unit_numpy(x), out_path, save_individual, out_dir)
+
+
+def dpmpp_infer_sample(model: torch.nn.Module, params: Params,
+                       sched: DiffusionSchedule, n: int = 36, img_size: int = 64, *,
+                       ema_params: Params = None, out_path: str = "samples_dpmpp.png",
+                       save_individual: bool = False,
+                       out_dir: str = "samples_individual", seed: Optional[int] = 1234,
+                       steps: int = 20, schedule_kind: str = "t_linear",
+                       schedule_idx: Optional[Sequence[int]] = None, class_id=None,
+                       guidance: float = 1.0, sde: bool = False,
+                       device: Device = "cuda") -> np.ndarray:
+    """DPM-Solver++(2M) grid inference (``sde=True``: the stochastic
+    variant, its per-step noise from the seed's generator after x_T).  x_T
+    is the seed's first draw, as in :func:`ddim_infer_sample`, so one seed
+    starts both samplers from the same noise.  Returns the grid written to
+    ``out_path``."""
+    _not_ported(class_id, guidance)
+    p = ema_params if ema_params is not None else params
+    ts = build_ddim_schedule(schedule_kind, steps, sched.T,
+                             alphas_cumprod=_alphas_cumprod(sched), explicit=schedule_idx)
+    gen, x = _init(model, n, img_size, seed, device)
+    with _sampling(model):
+        eps_fn = cfg_eps_fn(model, sched, params=p)
+        if sde:
+            x = dpmpp2m_sde_sample_loop(sched, eps_fn, x, generator=gen, timesteps=ts,
+                                        clip_x0=True)
+        else:
+            x = dpmpp2m_sample_loop(sched, eps_fn, x, timesteps=ts, clip_x0=True)
     return _save_outputs(_unit_numpy(x), out_path, save_individual, out_dir)
 
 

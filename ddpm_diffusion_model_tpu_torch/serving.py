@@ -1,29 +1,35 @@
 """Sampling service: an HTTP endpoint over a loaded U-Net, on one device.
 
 Counterpart of ``ddpm_diffusion_model_tpu/serving.py`` for unconditional
-DDIM sampling.  Stdlib-only (``ThreadingHTTPServer``); device work
-serializes behind one lock.
+DDIM and DPM-Solver++ sampling and image editing.  Stdlib-only
+(``ThreadingHTTPServer``); device work serializes behind one lock.
 
     python -m ddpm_diffusion_model_tpu_torch.serving --ckpt x.pt [--device cuda]
     GET /healthz                 -> {"status": "ok", ...}
     GET /sample?n=4&steps=50&eta=0.0&seed=7&schedule=t_linear&format=png|npy
+                &sampler=ddim|dpmpp
+    POST /edit   {"image": <b64 PNG>, "mode": "img2img"|"inpaint", ...}
+                 -> edited grid (SDEdit / RePaint, sampling/editing.py)
     GET /metrics                 -> counters, latency quantiles, kernel launches
 
 Kept from the JAX service: steps snap to ``STEP_CHOICES``, n is capped at
 ``MAX_N``, the parameters actually used come back in ``X-Used-*`` headers,
-and eta=0 requests are coalesced into one device batch while each
-request's images depend only on its own seed.  Dropped: the power-of-two
-row padding, which only bounded XLA's compile cache (eager PyTorch
-compiles nothing per shape).  ``guidance`` is clamped and snapped as the
-JAX service does it before it is tested.  Not ported yet (400):
-``sampler=dpmpp|cm``, ``class_id`` and a guidance that does not snap to
-1.0, ``POST /edit``, ``POST /upsample`` and mesh serving.  ``.pt``
-checkpoints are the reference format that the JAX CLI's ``export-torch``
-writes.
+and eta=0 and DPM-Solver++ requests are coalesced into one device batch
+per sampler while each request's images depend only on its own seed.
+``/edit`` snaps strength to ``STRENGTH_STEP`` and caps resamples at
+``MAX_RESAMPLES``.  Dropped: the power-of-two row padding, which only
+bounded XLA's compile cache (eager PyTorch compiles nothing per shape).
+``guidance`` is clamped and snapped as the JAX service does it before it
+is tested.  Not ported yet (400): ``sampler=cm``, ``class_id`` and a
+guidance that does not snap to 1.0, ``POST /upsample`` and mesh serving.
+``.pt`` checkpoints are the reference format that the JAX CLI's
+``export-torch`` writes.
 """
 
 from __future__ import annotations
 
+import base64
+import io
 import json
 import math
 import signal
@@ -40,12 +46,13 @@ import torch
 from .models.unet import UNetDenoiser
 from .ops import flash_attention, fused_norm
 from .ops.schedules import DiffusionSchedule, make_schedule
-from .sampling.inference import ddim_from_init, ddim_sample
+from .sampling.editing import box_mask, img2img_infer_sample, inpaint_infer_sample
+from .sampling.inference import ddim_from_init, ddim_sample, dpmpp_from_init
 from .sampling.loops import to_unit_interval
 from .sampling.timesteps import build_ddim_schedule
 from .utils.config import get_preset, preset_from_experiment
 from .utils.device import resolve_device
-from .utils.images import encode_png, make_grid
+from .utils.images import encode_png, load_image, make_grid
 from .utils.interop import load_reference_checkpoint
 
 __all__ = ["SamplerService", "make_server", "main"]
@@ -54,7 +61,8 @@ _NOT_PORTED = "is not ported yet"
 
 
 class SamplerService:
-    """A U-Net and its schedule on one device, with the eta=0 coalescer."""
+    """A U-Net and its schedule on one device, with the coalescer of the
+    deterministic samplers."""
 
     STEP_CHOICES = (1, 2, 5, 10, 25, 50, 100, 250, 1000)
     MAX_N = 64
@@ -64,6 +72,10 @@ class SamplerService:
     GUIDANCE_STEP = 0.25
     MAX_GUIDANCE = 8.0
     COALESCE_WINDOW_S = 0.005
+    # /edit: strength snaps to this grid (it sets the tail's length);
+    # resamples is capped
+    STRENGTH_STEP = 0.05
+    MAX_RESAMPLES = 4
     _LAT_WINDOW = 256
 
     def __init__(self, model: UNetDenoiser, sched: DiffusionSchedule,
@@ -77,7 +89,7 @@ class SamplerService:
         self._stats_lock = threading.Lock()  # counters, never held on device
         self._t_start = time.time()
         self._stats = {"requests": 0, "samples": 0, "errors": 0,
-                       "client_errors": 0, "coalesced_batches": 0,
+                       "client_errors": 0, "edits": 0, "coalesced_batches": 0,
                        "multi_request_batches": 0, "batch_size_hist": {}}
         self._latencies: list = []
         self._q_lock = threading.Lock()
@@ -138,50 +150,124 @@ class SamplerService:
 
     # ------------------------------------------------------------- sampling
 
+    def _snap_guidance(self, class_id, guidance: float) -> float:
+        """Clamp and snap ``guidance`` before the test, as the JAX service
+        does: a guidance within 0.125 of 1.0 is the unconditional request;
+        anything else, or a class, is not ported yet."""
+        if not math.isfinite(guidance):
+            raise ValueError(f"guidance must be finite, got {guidance!r}")
+        guidance = min(max(float(guidance), 0.0), self.MAX_GUIDANCE)
+        guidance = round(guidance / self.GUIDANCE_STEP) * self.GUIDANCE_STEP
+        if class_id is not None or guidance != 1.0:
+            raise ValueError(f"class-conditional sampling {_NOT_PORTED}")
+        return guidance
+
+    def _snap_steps(self, steps: int) -> int:
+        return min(self.STEP_CHOICES, key=lambda s: abs(s - int(steps)))
+
+    def _record(self, n: int, t0: float, edit: bool = False) -> None:
+        with self._stats_lock:
+            self._stats["requests"] += 1
+            self._stats["edits"] += int(edit)
+            self._stats["samples"] += n
+            self._latencies.append(time.perf_counter() - t0)
+            del self._latencies[:-self._LAT_WINDOW]
+
     def sample(self, n: int = 4, steps: int = 50, eta: float = 0.0,
                seed: int = 0, schedule_kind: str = "t_linear",
                sampler: str = "ddim", class_id=None, guidance: float = 1.0):
         """Returns ``(images, used)``: (n, H, W, C) float [0, 1] numpy and
         the parameters actually used after snapping.  Thread-safe.
 
-        eta=0 requests with the same (steps, schedule) landing within
+        ``sampler="dpmpp"`` is deterministic (eta forced to 0).  eta=0 and
+        DPM requests with the same (sampler, steps, schedule) landing within
         ``COALESCE_WINDOW_S`` run as ONE device batch; each request's rows
-        depend only on its own seed's init noise (eta=0 adds no in-loop
-        noise), so its images do not depend on what it was batched with."""
-        if sampler in ("dpmpp", "cm"):
+        depend only on its own seed's init noise (neither sampler adds
+        in-loop noise), so its images do not depend on what it was batched
+        with."""
+        if sampler == "cm":
             raise ValueError(f"sampler={sampler} {_NOT_PORTED}")
-        if sampler != "ddim":
-            raise ValueError(f"sampler must be 'ddim', got {sampler!r}")
+        if sampler not in ("ddim", "dpmpp"):
+            raise ValueError(f"sampler must be 'ddim' or 'dpmpp', got {sampler!r}")
         if schedule_kind not in self.SCHEDULE_KINDS:
             raise ValueError(f"schedule must be one of {self.SCHEDULE_KINDS}, "
                              f"got {schedule_kind!r}")
-        if not math.isfinite(guidance):
-            raise ValueError(f"guidance must be finite, got {guidance!r}")
-        # clamp and snap before the test, as the JAX service does: a
-        # guidance within 0.125 of 1.0 is the unconditional request
-        guidance = min(max(float(guidance), 0.0), self.MAX_GUIDANCE)
-        guidance = round(guidance / self.GUIDANCE_STEP) * self.GUIDANCE_STEP
-        if class_id is not None or guidance != 1.0:
-            raise ValueError(f"class-conditional sampling {_NOT_PORTED}")
+        guidance = self._snap_guidance(class_id, guidance)
         if not math.isfinite(eta):
             raise ValueError(f"eta must be finite, got {eta!r}")
+        if sampler == "dpmpp":
+            eta = 0.0  # deterministic; always coalesced
         n = max(1, min(int(n), self.MAX_N))
-        steps = min(self.STEP_CHOICES, key=lambda s: abs(s - int(steps)))
+        steps = self._snap_steps(steps)
         used = {"n": n, "steps": int(steps), "eta": float(eta),
                 "seed": int(seed), "schedule": schedule_kind, "sampler": sampler,
                 "guidance": guidance}
 
         t0 = time.perf_counter()
         if eta == 0.0:
-            out = self._sample_coalesced(n, steps, schedule_kind, int(seed))
+            out = self._sample_coalesced(n, steps, schedule_kind, int(seed), sampler)
         else:
             out = self._sample_direct(n, steps, float(eta), schedule_kind,
                                       int(seed))
-        with self._stats_lock:
-            self._stats["requests"] += 1
-            self._stats["samples"] += n
-            self._latencies.append(time.perf_counter() - t0)
-            del self._latencies[:-self._LAT_WINDOW]
+        self._record(n, t0)
+        return out, used
+
+    def edit(self, image01: np.ndarray, mode: str = "img2img", n: int = 4,
+             steps: int = 50, strength: float = 0.6, eta: float = 0.0,
+             seed: int = 0, box=None, mask01: Optional[np.ndarray] = None,
+             resamples: int = 1, class_id=None, guidance: float = 1.0):
+        """Edit a real image (``/edit``): SDEdit ``img2img`` or RePaint-style
+        ``inpaint`` with :meth:`sample`'s snapping, strength snapped to
+        ``STRENGTH_STEP`` in (0, 1], resamples capped at ``MAX_RESAMPLES``
+        and eta clamped to [0, 1].  ``image01``: (H, W, C) float [0, 1] at
+        the service's resolution; inpaint takes exactly one of ``box``
+        (x0, y0, x1, y1) and ``mask01`` (>= 0.5 = keep).  Returns
+        ``(images01, used)``: n variations, each row with its own noise.
+        Thread-safe; device work serializes."""
+        if mode not in ("img2img", "inpaint"):
+            raise ValueError(f"mode must be 'img2img'|'inpaint', got {mode!r}")
+        if not math.isfinite(strength) or not math.isfinite(eta):
+            raise ValueError("strength/eta must be finite")
+        self._snap_guidance(class_id, guidance)
+        S, C = self.img_size, self.model.config.in_channels
+        img = np.asarray(image01, np.float32)
+        if img.shape != (S, S, C):
+            raise ValueError(f"image must be ({S}, {S}, {C}) in [0,1], got {img.shape}")
+        n = max(1, min(int(n), self.MAX_N))
+        steps = self._snap_steps(steps)
+        strength = min(max(float(strength), self.STRENGTH_STEP), 1.0)
+        strength = round(strength / self.STRENGTH_STEP) * self.STRENGTH_STEP
+        resamples = max(1, min(int(resamples), self.MAX_RESAMPLES))
+        eta = min(max(float(eta), 0.0), 1.0)
+        used = {"mode": mode, "n": n, "steps": int(steps), "eta": eta,
+                "seed": int(seed)}
+        kw = dict(n=n, steps=steps, eta=eta, seed=int(seed), out_path=None,
+                  device=self.device)
+        init = img * 2.0 - 1.0
+        t0 = time.perf_counter()
+        if mode == "img2img":
+            used["strength"] = strength
+            with self._lock:
+                out = img2img_infer_sample(self.model, None, self.sched, init,
+                                           strength=strength, **kw)
+        else:
+            used["resamples"] = resamples
+            if (box is None) == (mask01 is None):
+                raise ValueError("inpaint needs exactly one of 'box' or 'mask'")
+            if box is not None:
+                try:
+                    mask = box_mask(S, [int(v) for v in box])
+                except TypeError as e:
+                    raise ValueError(f"box must be 4 ints (x0,y0,x1,y1): {e}") from e
+            else:
+                m = np.asarray(mask01, np.float32)
+                if m.shape[:2] != (S, S):
+                    raise ValueError(f"mask must be ({S}, {S}[, 1]), got {m.shape}")
+                mask = (m.reshape(S, S, -1)[..., :1] >= 0.5).astype(np.float32)
+            with self._lock:
+                out = inpaint_infer_sample(self.model, None, self.sched, init, mask,
+                                           resamples=resamples, **kw)
+        self._record(n, t0, edit=True)
         return out, used
 
     def _sample_direct(self, n, steps, eta, schedule_kind, seed):
@@ -201,13 +287,13 @@ class SamplerService:
         return torch.randn(shape, generator=gen, device=self.device,
                            dtype=torch.float32)
 
-    def _sample_coalesced(self, n, steps, schedule_kind, seed):
+    def _sample_coalesced(self, n, steps, schedule_kind, seed, sampler="ddim"):
         """Enqueue; the first thread on an empty queue becomes the leader,
         waits ``COALESCE_WINDOW_S`` for company, takes the whole queue in
         one grab and serves it in <= MAX_N chunks."""
         req = {"n": n, "seed": seed, "event": threading.Event(),
                "out": None, "err": None}
-        key = (steps, schedule_kind)
+        key = (sampler, steps, schedule_kind)
         with self._q_lock:
             q = self._queues.setdefault(key, [])
             q.append(req)
@@ -222,7 +308,7 @@ class SamplerService:
                     batch.append(taken.pop(0))
                     total += batch[-1]["n"]
                 try:
-                    outs = self._run_eta0_batch(batch, steps, schedule_kind)
+                    outs = self._run_eta0_batch(batch, steps, schedule_kind, sampler)
                     for r, o in zip(batch, outs):
                         r["out"] = o
                 except Exception as e:  # noqa: BLE001 -- delivered to every waiter
@@ -237,15 +323,16 @@ class SamplerService:
                 f"coalesced sample failed: {req['err']!r}") from req["err"]
         return req["out"]
 
-    def _run_eta0_batch(self, batch, steps, schedule_kind):
-        """ONE deterministic DDIM run over the concatenated per-request init
-        noise, split back per request."""
+    def _run_eta0_batch(self, batch, steps, schedule_kind, sampler="ddim"):
+        """ONE deterministic run (DDIM eta=0 or DPM-Solver++(2M)) over the
+        concatenated per-request init noise, split back per request."""
         ts = build_ddim_schedule(
             schedule_kind, steps, self.sched.T,
             alphas_cumprod=self.sched.alphas_cumprod.cpu().numpy())
         with self._lock:
             x_init = torch.cat([self._init_noise(r["n"], r["seed"]) for r in batch])
-            x = ddim_from_init(self.model, self.sched, x_init, ts)
+            kernel = dpmpp_from_init if sampler == "dpmpp" else ddim_from_init
+            x = kernel(self.model, self.sched, x_init, ts)
             x01 = to_unit_interval(x).float().cpu().numpy()
         with self._stats_lock:
             self._stats["coalesced_batches"] += 1
@@ -284,7 +371,7 @@ def make_server(service: SamplerService, host: str = "127.0.0.1",
                     "step_choices": list(service.STEP_CHOICES),
                     "max_n": service.MAX_N,
                     "num_classes": 0,
-                    "edit_modes": [],
+                    "edit_modes": ["img2img", "inpaint"],
                     "consistency": False,
                     "upsampler": False,
                     "device": str(service.device),
@@ -322,18 +409,64 @@ def make_server(service: SamplerService, host: str = "127.0.0.1",
                 return
             self._send_images(x, used, fmt)
 
+        MAX_EDIT_BODY = 32 << 20  # 32 MiB of JSON+base64 is plenty
+
         def do_POST(self):
             url = urlparse(self.path)
-            if url.path in ("/edit", "/upsample"):
+            if url.path == "/upsample":
                 service.record_client_error()
                 self._json(400, {"error": f"POST {url.path} {_NOT_PORTED}"})
                 return
-            self._json(404, {"error": "unknown path"})
+            if url.path != "/edit":
+                self._json(404, {"error": "unknown path"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                if not 0 < length <= self.MAX_EDIT_BODY:
+                    raise ValueError(f"body length {length} out of range")
+                req = json.loads(self.rfile.read(length))
+                if "image" not in req:
+                    raise ValueError("missing 'image' (base64 PNG/JPEG)")
+                img01 = load_image(io.BytesIO(base64.b64decode(req["image"])),
+                                   size=service.img_size)
+                mask01 = None
+                if req.get("mask") is not None:
+                    mask01 = load_image(io.BytesIO(base64.b64decode(req["mask"])),
+                                        size=service.img_size, grayscale=True)
+                kw = dict(
+                    mode=str(req.get("mode", "img2img")),
+                    n=int(req.get("n", 4)),
+                    steps=int(req.get("steps", 50)),
+                    strength=float(req.get("strength", 0.6)),
+                    eta=float(req.get("eta", 0.0)),
+                    seed=int(req.get("seed", 0)),
+                    box=req.get("box"),
+                    mask01=mask01,
+                    resamples=int(req.get("resamples", 1)),
+                    class_id=(int(req["class_id"])
+                              if req.get("class_id") is not None else None),
+                    guidance=float(req.get("guidance", 1.0)),
+                )
+                fmt = req.get("format", "png")
+            except Exception as e:  # noqa: BLE001 -- a body that does not decode
+                service.record_client_error()
+                self._json(400, {"error": f"bad request: {e}"})
+                return
+            try:
+                x, used = service.edit(img01, **kw)
+            except ValueError as e:
+                # edit() validates every field before device work
+                service.record_client_error()
+                self._json(400, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 -- surfaced as a 500
+                service.record_error()
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send_images(x, used, fmt)
 
         def _send_images(self, x, used, fmt):
             if fmt == "npy":
-                import io
-
                 buf = io.BytesIO()
                 np.save(buf, x)
                 body, ctype = buf.getvalue(), "application/octet-stream"

@@ -1,9 +1,9 @@
 """Image-grid utilities (host-side, numpy + PIL).
 
 The port's own copy of the parts of ``ddpm_diffusion_model_tpu/utils/images.py``
-that sampling and serving need (``grid_nrow``, ``make_grid`` with its
-``padding``, ``save_image``, ``save_image_grid``), plus :func:`encode_png`
-for the server.
+that sampling, editing and serving need (``grid_nrow``, ``make_grid`` with
+its ``padding``, ``save_image``, ``save_image_grid``, ``load_image``), plus
+:func:`encode_png` for the server.
 Arrays are NHWC float in [0, 1].
 """
 
@@ -16,13 +16,34 @@ from typing import Optional
 import numpy as np
 
 __all__ = ["make_grid", "save_image", "save_image_grid", "encode_png",
-           "grid_nrow"]
+           "grid_nrow", "load_image"]
 
 
 def grid_nrow(n: int) -> int:
     """Images per row of an n-image grid: ceil(sqrt(n)) (the reference's
     int(sqrt(n)) for perfect squares, ceil otherwise)."""
     return int(np.ceil(np.sqrt(max(1, int(n)))))
+
+
+def load_image(path, size: Optional[int] = None, *, grayscale: bool = False) -> np.ndarray:
+    """Read a PNG/JPEG (path or file-like object) into an (H, W, C) float32
+    array in [0, 1].  ``size``: center-crop to a square, then a bilinear
+    resize to (size, size), the data transforms' geometry.  ``grayscale``
+    gives C = 1 (masks)."""
+    from PIL import Image
+
+    img = Image.open(path)
+    img = img.convert("L" if grayscale else "RGB")
+    if size is not None:
+        w, h = img.size
+        side = min(w, h)
+        left, top = (w - side) // 2, (h - side) // 2
+        img = img.crop((left, top, left + side, top + side))
+        img = img.resize((int(size), int(size)), Image.BILINEAR)
+    arr = np.asarray(img, dtype=np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    return arr
 
 
 def make_grid(images: np.ndarray, nrow: Optional[int] = None,

@@ -1,8 +1,9 @@
 """The port's command line, ``python -m ddpm_diffusion_model_tpu_torch.cli``,
 driven in-process through ``cli.main([..., "--device", "cpu"])`` at a
 16-px config: ``train`` on synthetic, blob and zip data (with the device
-cache and a held-out fraction), ``--resume auto``, ``sample-ddim``,
-``sample-ddpm``, ``strip``, ``eval`` and ``info``.  Held against the JAX
+cache and a held-out fraction), ``--resume auto``, ``sample-ddim`` (also
+``--refresh-every``), ``sample-ddpm``, ``sample-dpmpp`` (also ``--sde``),
+``img2img``, ``inpaint``, ``strip``, ``eval`` and ``info``.  Held against the JAX
 package's modules: ``ExperimentConfig`` and ``info``'s JSON, the
 experiment a checkpoint stores, the grids' and strips' shapes, ``eval``'s
 keys; and each flag whose module is not ported exits with "not ported
@@ -169,6 +170,76 @@ def test_sample_strip_and_eval_from_the_checkpoint(run, monkeypatch):
     assert all(np.isfinite(res[k]) for k in ("val_loss", "val_loss_ema", "rfid_ema"))
 
 
+def test_fast_samplers_and_editing_from_the_checkpoint(run, monkeypatch):
+    """``sample-dpmpp`` (ODE and ``--sde``), ``sample-ddim --refresh-every
+    2``, ``img2img`` and ``inpaint`` (``--box`` and ``--mask``) from the
+    run's checkpoint: exit 0 and the grid PNG ``make_grid`` gives."""
+    d, _, ck, _ = run
+    monkeypatch.chdir(d)
+    last = os.path.join(ck, "verify16_last")
+    grid = lambda n, nrow: jax_images.make_grid(np.zeros((n, 16, 16, 3)),  # noqa: E731
+                                                nrow=nrow).shape
+    face = (np.random.default_rng(0).uniform(size=(40, 30, 3)) * 255).astype(np.uint8)
+    Image.fromarray(face).save(d / "face.png")
+    mask = np.full((16, 16), 255, np.uint8)
+    mask[:, :6] = 0
+    Image.fromarray(mask).save(d / "mask.png")
+    for argv, out, shape, say in [
+        (["sample-dpmpp", "--n", "4", "--steps", "6", "--out", "p.png"], "p.png",
+         grid(4, 2), "[INFER-DPM++] grid -> p.png (steps=6)"),
+        (["sample-dpmpp", "--n", "3", "--steps", "6", "--sde", "--individual", "--out",
+          "ps.png"], "ps.png", grid(3, 2), "[INFER-DPM++SDE] grid -> ps.png"),
+        (["sample-ddim", "--n", "4", "--steps", "8", "--refresh-every", "2", "--out",
+          "f.png"], "f.png", grid(4, 2), "encoder-cached 1/2"),
+        (["img2img", "--init", "face.png", "--n", "2", "--steps", "8", "--strength", "0.5",
+          "--out", "i.png"], "i.png", grid(2, 2), "[IMG2IMG] grid -> i.png (strength=0.5"),
+        (["inpaint", "--init", "face.png", "--box", "2,2,10,12", "--n", "3", "--steps", "4",
+          "--resamples", "2", "--out", "b.png"], "b.png", grid(3, 2),
+         "resamples=2, generated=31% of pixels"),
+        (["inpaint", "--init", "face.png", "--mask", "mask.png", "--n", "1", "--steps",
+          "4", "--out", "m.png"], "m.png", grid(1, 1), "generated=38% of pixels"),
+    ]:
+        text = _run([argv[0], "--ckpt", last, "--ema", *argv[1:], *CPU])
+        assert say in text, text
+        assert _png_shape(d / out) == shape
+    assert sorted(os.listdir(d / "samples_individual"))[:3] == [f"img_{i:03d}.png"
+                                                                for i in range(3)]
+
+
+@pytest.mark.parametrize("extra", [[], ["--box", "0,0,4,4", "--mask", "m.png"]],
+                         ids=["neither", "both"])
+def test_inpaint_needs_one_of_mask_and_box_before_the_checkpoint(extra):
+    """The argument mistake exits before the checkpoint (which does not
+    exist here) is read."""
+    with pytest.raises(SystemExit, match="exactly one of --mask PNG or --box"):
+        cli.main(["inpaint", "--ckpt", "no/such/ckpt", "--init", "x.png", *extra, *CPU])
+
+
+def test_new_commands_take_the_jax_clis_flags(monkeypatch):
+    """The port's parser accepts what the JAX CLI's does for the four
+    commands, with the same defaults (the JAX CLI's commands are replaced
+    by a recorder, so its parse runs alone)."""
+    seen = []
+    for name in ("cmd_sample_dpmpp", "cmd_img2img", "cmd_inpaint", "cmd_sample_ddim"):
+        monkeypatch.setattr(jax_cli, name, lambda args: seen.append(vars(args)))
+    ours = cli.build_parser()
+    for argv in (["sample-dpmpp", "--ckpt", "c"], ["sample-dpmpp", "--ckpt", "c", "--sde",
+                                                   "--steps", "12", "--schedule", "karras",
+                                                   "--individual", "--n", "5"],
+                 ["img2img", "--ckpt", "c", "--init", "i"],
+                 ["img2img", "--ckpt", "c", "--init", "i", "--strength", "0.3",
+                  "--eta", "0.2", "--steps", "20", "--n", "4"],
+                 ["inpaint", "--ckpt", "c", "--init", "i", "--box", "1,2,3,4"],
+                 ["inpaint", "--ckpt", "c", "--init", "i", "--mask", "m", "--resamples",
+                  "3", "--eta", "0.5"],
+                 ["sample-ddim", "--ckpt", "c", "--refresh-every", "3"]):
+        jax_cli.main(argv)
+        a, b = vars(ours.parse_args(argv)), seen.pop()
+        shared = set(b) - {"fn"}
+        assert shared <= set(a), shared - set(a)
+        assert {k: a[k] for k in shared} == {k: b[k] for k in shared}
+
+
 def test_train_blobs_on_the_device_cache_scores_rfid(tmp_path):
     cfg = tmp_path / "exp.json"
     cfg.write_text(json.dumps(dict(EXP, epochs=1, sample_n=16)))
@@ -218,14 +289,21 @@ def test_train_from_a_zip(tmp_path, monkeypatch, faces_zip, extra):
     (["train", "--latent-vae", "v"], "--latent-vae"),
     (["train", "--data", "hf"], "--data hf"),
     (["sample-ddim", "--ckpt", "c", "--sharded"], "--sharded"),
-    (["sample-ddim", "--ckpt", "c", "--refresh-every", "4"], "--refresh-every"),
+    (["sample-ddim", "--ckpt", "c", "--refresh-every", "4", "--class-id", "1"],
+     "--class-id"),
     (["sample-ddpm", "--ckpt", "c", "--class-id", "1"], "--class-id"),
     (["sample-ddpm", "--ckpt", "c", "--guidance", "2"], "--guidance"),
     (["sample-ddim", "--ckpt", "c", "--vae", "v"], "--vae"),
     (["eval", "--ckpt", "c", "--nll", "5"], "--nll"),
     (["eval", "--ckpt", "c", "--nll-full"], "--nll"),
+    (["sample-dpmpp", "--ckpt", "c", "--sharded"], "--sharded"),
+    (["sample-dpmpp", "--ckpt", "c", "--sde", "--class-id", "2"], "--class-id"),
+    (["img2img", "--ckpt", "c", "--init", "i.png", "--guidance", "3"], "--guidance"),
+    (["inpaint", "--ckpt", "c", "--init", "i.png", "--box", "0,0,4,4", "--class-id", "0"],
+     "--class-id"),
 ], ids=["mesh", "sharded_cache", "latent", "hf", "sharded", "refresh", "class_id",
-        "guidance", "vae", "nll", "nll_full"])
+        "guidance", "vae", "nll", "nll_full", "dpmpp_sharded", "dpmpp_class_id",
+        "img2img_guidance", "inpaint_class_id"])
 def test_unported_flags_exit(argv, msg, tmp_path):
     cfg = tmp_path / "exp.json"
     cfg.write_text(json.dumps(EXP))

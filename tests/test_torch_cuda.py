@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel (forward
 and backward) against its plain PyTorch version on the card, the wrappers'
 refusals, a small U-Net forward and train step on the kernels against the
-plain versions with the launches per step, the service on the card,
+plain versions with the launches per step, the decoder-only forward and
+a 4-step DPM-Solver++ run on the kernels against the plain versions, the
+service on the card,
 ``remat`` on the kernels, a checkpoint round trip of CUDA state, the
 device cache and ``device_prefetch`` on the card and the mounted FID
 extractor there.  Every test here carries the ``cuda`` marker and skips without a card.  The file imports no JAX, so it also runs where JAX is absent:
@@ -381,6 +383,60 @@ def test_service_on_the_card_counts_launches(card):
     assert tfa.launches - f0 == 1 * forwards[0]
     y, _ = svc.sample(n=3, steps=5, seed=7, eta=0.5)
     assert y.shape == x.shape and not np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decode_forward_on_kernels_matches_plain(deterministic, dtype):
+    """The decoder-only forward (encoder-cached sampling's reuse step) on
+    the kernels against the plain versions, fed the same cached features:
+    6 decoder ResBlocks x 2 + the head = 13 GN launches and no attention.
+    Decoding a forward's own features at its t gives that forward's bits."""
+    card = deterministic
+    torch.manual_seed(2)
+    model = UNetDenoiser(UNetConfig(**SMALL), dtype=dtype, device=card)
+    model = model.to(memory_format=torch.channels_last).eval()
+    x = torch.randn(3, 10, 10, 3, device=card)
+    t = torch.tensor([1, 500, 999], device=card)
+    t2 = torch.tensor([0, 450, 900], device=card)
+    with torch.inference_mode():
+        full, feats = model(x, t, return_features=True)
+        g0, f0 = tfn.launches, tfa.launches
+        a = model(x, t2, mode="decode", cached=feats)
+        assert tfn.launches - g0 == 13 and tfa.launches - f0 == 0
+        with _plain_path():
+            b = model(x, t2, mode="decode", cached=feats)
+        own = model(x, t, mode="decode", cached=feats)
+    torch.cuda.synchronize()
+    assert all(f.dtype == dtype for f in (feats[0], *feats[1]))
+    assert torch.equal(own, full)
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    else:
+        # one bf16 rounding of each GN output, carried through 6 ResBlocks
+        assert float((a - b).norm() / b.norm()) < 1e-2
+
+
+def test_dpmpp_on_kernels_matches_plain(card):
+    """Four DPM-Solver++(2M) steps from one x_T on the kernels and on the
+    plain versions (fp32: summation order only), 23 GN and 1 flash launch
+    per forward."""
+    from ddpm_diffusion_model_tpu_torch.ops import DiffusionConfig, make_schedule
+    from ddpm_diffusion_model_tpu_torch.sampling import dpmpp_from_init
+
+    torch.manual_seed(3)
+    model = UNetDenoiser(UNetConfig(**SMALL), dtype=torch.float32, device=card)
+    model = model.to(memory_format=torch.channels_last).eval()
+    sched = make_schedule(DiffusionConfig(T=100), device=card)
+    x = torch.randn(4, 10, 10, 3, device=card)
+    ladder = [99, 70, 40, 10, 0]
+    g0, f0 = tfn.launches, tfa.launches
+    a = dpmpp_from_init(model, sched, x, ladder)
+    assert tfn.launches - g0 == 23 * 4 and tfa.launches - f0 == 4
+    with _plain_path():
+        b = dpmpp_from_init(model, sched, x, ladder)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 def test_train_step_on_kernels_matches_plain_and_counts_launches(card):

@@ -1,7 +1,10 @@
 """The port's sampling service on the CPU: health, PNG/npy sampling, the
-eta=0 coalescer (coalesced rows equal the solo run), eta>0, the 400s for
-bad and not-yet-ported requests, metrics, and ``main``'s graceful drain."""
+eta=0 and DPM-Solver++ coalescer (coalesced rows equal the solo run, one
+queue per sampler), eta>0, ``POST /edit`` (img2img and inpaint, the JAX
+service's snapping and caps), the 400s for bad and not-yet-ported
+requests, metrics, and ``main``'s graceful drain."""
 
+import base64
 import concurrent.futures
 import io
 import json
@@ -63,7 +66,7 @@ def test_healthz(served):
     assert code == 200 and data["status"] == "ok"
     assert data["img_size"] == RES and data["T"] == 20 and data["max_n"] == 64
     assert data["step_choices"] == list(SamplerService.STEP_CHOICES)
-    assert data["num_classes"] == 0 and data["edit_modes"] == []
+    assert data["num_classes"] == 0 and data["edit_modes"] == ["img2img", "inpaint"]
     assert data["device"] == "cpu"
 
 
@@ -106,7 +109,7 @@ def test_eta_positive_is_deterministic_per_seed(served):
 @pytest.mark.parametrize("query,needle", [
     ("schedule=bogus", "schedule must be one of"),
     ("n=abc", "invalid literal"),
-    ("sampler=dpmpp", "not ported yet"),
+    ("sampler=dpmpp&class_id=3", "not ported yet"),
     ("sampler=cm", "not ported yet"),
     ("sampler=euler", "sampler must be"),
     ("class_id=3", "not ported yet"),
@@ -141,14 +144,188 @@ def test_guidance_snapping_to_one_is_served(served, guidance):
 
 @pytest.mark.parametrize("path", ["/edit", "/upsample"])
 def test_unported_post_routes_are_400(served, path):
+    """``/upsample`` is not ported; ``/edit`` is, but not with a class."""
     _svc, base = served
-    req = urllib.request.Request(base + path, data=b"{}", method="POST")
+    body = {"image": _b64_png(np.full((RES, RES, 3), 0.5))} if path == "/edit" else {}
+    if path == "/edit":
+        body["class_id"] = 1
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 method="POST")
     with pytest.raises(urllib.error.HTTPError) as ei:
         urllib.request.urlopen(req, timeout=30)
     assert ei.value.code == 400 and "not ported yet" in ei.value.read().decode()
     with pytest.raises(urllib.error.HTTPError) as ei:
         _get(base + "/nowhere")
     assert ei.value.code == 404
+
+
+def _b64_png(img01, mode=None):
+    from PIL import Image
+
+    arr = np.clip(np.asarray(img01) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr.squeeze(-1) if arr.ndim == 3 and arr.shape[-1] == 1 else arr,
+                    mode=mode).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _post(url, obj):
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def _face():
+    rng = np.random.default_rng(0)
+    return rng.uniform(size=(RES, RES, 3)).astype(np.float32)
+
+
+def test_dpmpp_sample_is_served_coalesced_and_deterministic(served):
+    """sampler=dpmpp forces eta to 0, coalesces with other DPM requests and
+    equals ``dpmpp_from_init`` from the seed's x_T."""
+    from ddpm_diffusion_model_tpu_torch.sampling import (build_ddim_schedule,
+                                                         dpmpp_from_init, to_unit_interval)
+
+    svc, base = served
+    code, hdr, _ = _get(f"{base}/sample?n=2&steps=4&seed=3&sampler=dpmpp")
+    assert code == 200 and hdr["X-Used-Steps"] == "5"
+    x, used = svc.sample(n=2, steps=5, eta=0.7, seed=3, sampler="dpmpp")
+    assert used["sampler"] == "dpmpp" and used["eta"] == 0.0
+    ts = build_ddim_schedule("t_linear", 5, svc.sched.T,
+                             alphas_cumprod=svc.sched.alphas_cumprod.numpy())
+    want = to_unit_interval(dpmpp_from_init(svc.model, svc.sched,
+                                            svc._init_noise(2, 3), ts)).numpy()
+    np.testing.assert_allclose(x, want, atol=1e-5)
+    np.testing.assert_array_equal(_npy(base, n=2, steps=5, seed=3, sampler="dpmpp",
+                                       eta=0.9), x)
+    ddim = _npy(base, n=2, steps=5, seed=3)
+    assert np.abs(ddim - x).max() > 1e-3  # the same x_T, another sampler
+
+    solo = {s: _npy(base, n=2, steps=2, seed=s, sampler="dpmpp") for s in (31, 32)}
+    before = svc.metrics()["multi_request_batches"]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+        futs = {s: ex.submit(_npy, base, n=2, steps=2, seed=s, sampler="dpmpp")
+                for s in solo}
+        merged = {s: f.result() for s, f in futs.items()}
+    assert svc.metrics()["multi_request_batches"] == before + 1
+    for s in solo:
+        np.testing.assert_allclose(merged[s], solo[s], atol=1e-4)
+
+
+def test_ddim_and_dpmpp_requests_never_share_a_batch(served):
+    """The queue key holds the sampler: a DDIM and a DPM request in the same
+    window run as two batches of one request each, and each equals its
+    solo run."""
+    svc, base = served
+    # 5 steps: a 2-point ladder's one DPM step is one DDIM step
+    solo_d = _npy(base, n=2, steps=5, seed=41)
+    solo_p = _npy(base, n=2, steps=5, seed=41, sampler="dpmpp")
+    m0 = svc.metrics()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+        fd = ex.submit(_npy, base, n=2, steps=5, seed=41)
+        fp = ex.submit(_npy, base, n=2, steps=5, seed=41, sampler="dpmpp")
+        d, p = fd.result(), fp.result()
+    m1 = svc.metrics()
+    assert m1["multi_request_batches"] == m0["multi_request_batches"]
+    assert m1["coalesced_batches"] == m0["coalesced_batches"] + 2
+    np.testing.assert_allclose(d, solo_d, atol=1e-4)
+    np.testing.assert_allclose(p, solo_p, atol=1e-4)
+    assert np.abs(d - p).max() > 1e-3
+
+
+def test_edit_img2img_and_inpaint_are_served(served):
+    svc, base = served
+    img = _face()
+    before = svc.metrics()["edits"]
+    code, hdr, body = _post(base + "/edit", {"image": _b64_png(img), "mode": "img2img",
+                                             "n": 3, "steps": 4, "strength": 0.5,
+                                             "seed": 2, "format": "npy"})
+    x = np.load(io.BytesIO(body))
+    assert code == 200 and hdr["X-Used-N"] == "3" and hdr["X-Used-Steps"] == "5"
+    assert x.shape == (3, RES, RES, 3) and 0.0 <= x.min() and x.max() <= 1.0
+    code, hdr, body = _post(base + "/edit", {"image": _b64_png(img), "mode": "inpaint",
+                                             "n": 2, "steps": 5, "box": [2, 2, 6, 6],
+                                             "resamples": 2, "format": "npy"})
+    y = np.load(io.BytesIO(body))
+    assert code == 200 and y.shape == (2, RES, RES, 3)
+    # the known pixels are the PNG's, bit for bit through [-1, 1] and back
+    from ddpm_diffusion_model_tpu_torch.utils.images import load_image
+
+    sent = load_image(io.BytesIO(base64.b64decode(_b64_png(img))), size=RES)
+    keep = np.ones((RES, RES), bool)
+    keep[2:6, 2:6] = False
+    np.testing.assert_allclose(y[:, keep], np.broadcast_to(sent[keep], (2, *sent[keep].shape)),
+                               atol=1e-6)
+    assert np.abs(y[:, ~keep] - sent[~keep]).max() > 1e-3
+    mask = np.ones((RES, RES, 1), np.float32)
+    mask[:, :4] = 0.0
+    code, _h, body = _post(base + "/edit", {"image": _b64_png(img), "mode": "inpaint",
+                                            "mask": _b64_png(mask, mode="L"), "n": 1,
+                                            "steps": 2, "format": "png"})
+    assert code == 200 and body[:4] == b"\x89PNG"
+    assert svc.metrics()["edits"] == before + 3
+
+
+def test_edit_snaps_and_caps_as_jax(served):
+    """Strength snaps to 0.05 in (0, 1], resamples cap at 4, n at MAX_N,
+    steps snap to STEP_CHOICES, eta clamps to [0, 1]."""
+    svc, _base = served
+    img = _face()
+    x, used = svc.edit(img, mode="img2img", n=100, steps=3, strength=0.62, eta=-2.0)
+    assert x.shape == (svc.MAX_N, RES, RES, 3)
+    assert used == {"mode": "img2img", "n": svc.MAX_N, "steps": 2, "eta": 0.0, "seed": 0,
+                    "strength": pytest.approx(0.6)}
+    _x, used = svc.edit(img, mode="img2img", n=1, steps=1, strength=0.0001, eta=3.0)
+    assert used["strength"] == pytest.approx(0.05) and used["eta"] == 1.0
+    _x, used = svc.edit(img, mode="img2img", n=1, steps=1, strength=7.0)
+    assert used["strength"] == 1.0
+    _x, used = svc.edit(img, mode="inpaint", n=1, steps=1, box=(0, 0, 4, 4), resamples=9)
+    assert used["resamples"] == svc.MAX_RESAMPLES
+    _x, used = svc.edit(img, mode="inpaint", n=1, steps=1, box=(0, 0, 4, 4), resamples=-3)
+    assert used["resamples"] == 1
+    a, _ = svc.edit(img, mode="img2img", n=2, steps=2, seed=4)
+    b, _ = svc.edit(img, mode="img2img", n=2, steps=2, seed=4)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("body,needle", [
+    ({"mode": "inpaint", "box": [4, 4, 2, 8]}, "out of bounds"),
+    ({"mode": "inpaint", "box": [0, 0, 99, 4]}, "out of bounds"),
+    ({"mode": "inpaint", "box": 5}, "box must be 4 ints"),
+    ({"mode": "inpaint"}, "exactly one of 'box' or 'mask'"),
+    ({"mode": "inpaint", "box": [0, 0, 4, 4], "mask": "MASK"}, "exactly one of"),
+    ({"mode": "outpaint"}, "mode must be"),
+    ({"strength": "nan"}, "must be finite"),
+    ({"eta": "inf"}, "must be finite"),
+    ({"guidance": 3.0}, "not ported yet"),
+    ({"image": None}, "bad request"),
+    ({"image": "not-base64-png"}, "bad request"),
+    ({"n": "many"}, "bad request"),
+], ids=["box_order", "box_bounds", "box_type", "neither", "both", "mode", "strength_nan",
+        "eta_inf", "guidance", "no_image", "bad_image", "bad_n"])
+def test_bad_edit_requests_are_400(served, body, needle):
+    svc, base = served
+    req = {"image": _b64_png(_face()), "steps": 1, "n": 1}
+    req.update(body)
+    if req.get("mask") == "MASK":
+        req["mask"] = _b64_png(np.ones((RES, RES, 1)), mode="L")
+    if req.get("image") is None:
+        del req["image"]
+    before = svc.metrics()["client_errors"]
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(base + "/edit", req)
+    assert ei.value.code == 400
+    assert needle in json.loads(ei.value.read())["error"]
+    assert svc.metrics()["client_errors"] == before + 1
+
+
+def test_edit_checks_the_image_shape(served):
+    svc, _base = served
+    with pytest.raises(ValueError, match=r"image must be \(8, 8, 3\)"):
+        svc.edit(np.zeros((RES, RES + 1, 3)), mode="img2img")
+    with pytest.raises(ValueError, match="mask must be"):
+        svc.edit(_face(), mode="inpaint", mask01=np.ones((4, 4, 1)))
 
 
 def test_metrics(served):

@@ -135,3 +135,98 @@ def test_forward_keeps_channels_last_for_the_fused_norm():
     with torch.inference_mode():
         out = port(x, torch.tensor([3]))
     assert out.shape == (1, 10, 10, 3) and out.is_contiguous()
+
+
+# ------------------------------------------------ the encoder-cached forward
+
+
+def _nhwc(f):
+    """A port feature (NCHW, channels_last) as JAX's NHWC numpy array."""
+    return f.permute(0, 2, 3, 1).numpy()
+
+
+def _jax_features(feats):
+    mid, skips = feats
+    return np.array(mid), [np.array(s) for s in skips]
+
+
+@pytest.mark.parametrize("kw", [
+    SMALL, dict(SMALL, channel_mults=(1, 2, 2), attn_resolutions=(5,), img_resolution=10),
+], ids=["img16", "img10_resize"])
+def test_return_features_and_decode_match_jax_fp32(kw):
+    """``return_features`` gives JAX's eps and (mid, skips) to 1e-4 (the
+    features NHWC <-> NCHW); the decode forward fed JAX's features at a
+    fresh t gives JAX's decode to 1e-4."""
+    jm, params, port = _carried(kw, seed=5)
+    img = kw["img_resolution"]
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(2, img, img, 3)).astype(np.float32)
+    t = np.array([40, 91], dtype=np.int32)
+    t2 = np.array([33, 80], dtype=np.int32)
+    j_eps, j_feats = jax.jit(lambda p, x, t: jm.apply(p, x, t, return_features=True))(
+        params, jnp.asarray(x), jnp.asarray(t))
+    with torch.inference_mode():
+        eps, (mid, skips) = port(torch.from_numpy(x), torch.from_numpy(t),
+                                 return_features=True)
+    j_mid, j_skips = _jax_features(j_feats)
+    np.testing.assert_allclose(eps.numpy(), np.asarray(j_eps), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_nhwc(mid), j_mid, atol=1e-4, rtol=1e-4)
+    assert len(skips) == len(j_skips) == len(kw["channel_mults"])
+    for s, js_ in zip(skips, j_skips):
+        assert s.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_allclose(_nhwc(s), js_, atol=1e-4, rtol=1e-4)
+
+    want = jax.jit(lambda p, x, t, f: jm.apply(p, x, t, mode="decode", cached=f))(
+        params, jnp.asarray(x), jnp.asarray(t2), j_feats)
+    cached = (torch.from_numpy(j_mid).permute(0, 3, 1, 2),
+              tuple(torch.from_numpy(s).permute(0, 3, 1, 2) for s in j_skips))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x), torch.from_numpy(t2), mode="decode", cached=cached)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decode_with_its_own_features_equals_full(dtype):
+    """Features of (x, t) decoded at the same t run the same ops on the same
+    bits as the full forward: equal exactly.  The cache holds the compute
+    dtype, and the decode forward returns the features it was given."""
+    _jm, _p, port32 = _carried(SMALL, seed=6)
+    port = UNetDenoiser(port32.config, dtype=dtype, device="cpu")
+    port.load_state_dict(port32.state_dict(), strict=True)
+    port = port.to(memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 16, 3)).astype(np.float32))
+    t = torch.tensor([7, 60])
+    with torch.inference_mode():
+        full = port(x, t)
+        eps, feats = port(x, t, return_features=True)
+        dec, feats2 = port(x, t, mode="decode", cached=feats, return_features=True)
+    assert torch.equal(eps, full) and torch.equal(dec, full)
+    assert feats[0].dtype == dtype and all(s.dtype == dtype for s in feats[1])
+    assert torch.equal(feats2[0], feats[0])
+    assert all(torch.equal(a, b) for a, b in zip(feats2[1], feats[1]))
+
+
+def test_decode_casts_float32_features_to_the_compute_dtype():
+    _jm, _p, port32 = _carried(SMALL, seed=7)
+    port = UNetDenoiser(port32.config, dtype=torch.bfloat16, device="cpu")
+    port.load_state_dict(port32.state_dict(), strict=True)
+    port.eval()
+    x = torch.from_numpy(np.random.default_rng(15).normal(size=(1, 16, 16, 3))
+                         .astype(np.float32))
+    t = torch.tensor([30])
+    with torch.inference_mode():
+        full, (mid, skips) = port(x, t, return_features=True)
+        as32 = (mid.float(), tuple(s.float() for s in skips))
+        dec = port(x, t, mode="decode", cached=as32)
+    assert torch.equal(dec, full)
+
+
+def test_bad_modes_raise():
+    _jm, _p, port = _carried(SMALL, seed=8)
+    x, t = torch.zeros(1, 16, 16, 3), torch.tensor([3])
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="requires cached"):
+            port(x, t, mode="decode")
+        with pytest.raises(ValueError, match="unknown mode 'encode'"):
+            port(x, t, mode="encode")

@@ -60,3 +60,25 @@ def test_resolve_device_never_falls_back():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device()
+
+
+@pytest.mark.parametrize("size", [None, 16, 7])
+@pytest.mark.parametrize("grayscale", [False, True], ids=["rgb", "gray"])
+@pytest.mark.parametrize("fmt", ["PNG", "JPEG"])
+def test_load_image_equals_jax(tmp_path, size, grayscale, fmt):
+    """``load_image`` (the CLI's ``--init``/``--mask`` and ``/edit``'s
+    decoder): center crop, bilinear resize, [0, 1] float32, C = 1 for masks;
+    from a path and from a file-like object, equal to JAX's bit for bit."""
+    from PIL import Image
+
+    arr = (np.random.default_rng(3).random((21, 30, 3)) * 255).astype(np.uint8)
+    path = tmp_path / f"x.{fmt.lower()}"
+    Image.fromarray(arr).save(path, format=fmt)
+    got = images.load_image(str(path), size=size, grayscale=grayscale)
+    want = jax_images.load_image(str(path), size=size, grayscale=grayscale)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.shape[-1] == (1 if grayscale else 3)
+    np.testing.assert_array_equal(got, want)
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(
+            images.load_image(io.BytesIO(f.read()), size=size, grayscale=grayscale), want)
