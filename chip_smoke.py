@@ -173,13 +173,40 @@ package), in phases; any failure exits non-zero before the final line.
               through make_server: /healthz upsampler, POST /upsample 200
               with X-Used-* and exact launches, /sample 400, a 300-px image
               400, /metrics upsamples
+15. distill   (run after sr, before times) progressive and consistency
+              distillation on celeba64_attn with 10 classes at full width
+              (31,317,763 params, seeded, saved as a port checkpoint: the
+              teacher), guidance 3 baked in, batch 128, bf16: (a) every
+              kernel call of one guided progressive update (the teacher's
+              two half-steps, each ONE forward of 256 rows, then the
+              student's forward and backward at 128) and of one consistency
+              update (one teacher forward at 256 rows, the EMA target's and
+              the student's at 128) against its plain version in bf16 and
+              fp32 on its GN plan's route; one whole update of each kind on
+              injected draws, kernels against plain in fp32 at phase 6a's
+              bars; each forward kernel's time at the guided teacher's 256
+              rows beside its bound; (b) progressive_distill 64 -> 32 -> 16
+              and consistency_distill on a 32-segment ladder, launches exact
+              per update (3 forwards: 135 GN and 15 flash; the backward's
+              45/5/5), peak memory, an update's wall, device time and idle
+              share; (c) ``cli distill`` both modes from the teacher's
+              checkpoint (blob faces in 10 class hues, device cache), ``cli
+              sample-ddim --schedule linear --steps 2 --class-id all`` on the
+              progressive student, ``cli sample-cm --steps 1`` and ``--steps
+              2 --class-id 2`` on the consistency student (exit 0, launches
+              exact, PNGs as make_grid gives); (d) the service over a
+              directory ``cli train`` wrote equal to ddim_infer_sample from
+              the same seed, and over the consistency student: /healthz, two
+              sampler=cm requests in one batch, each equal to its re-run
+              beside another request at the same rows and beside its solo
+              re-run (reported), steps=2, sampler=ddim and /edit 400
 
 Before the final line it prints one ``{"kernels": [...]}`` JSON line and the
 ``nvidia-smi`` name/power-limit line; the final line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--only kernels,run,...`` runs the build and the named phases only, and
-prints no result line (for trying a change on the card); ``--only cfg``
-and ``--only sr`` need no other phase.
+prints no result line (for trying a change on the card); ``--only cfg``,
+``--only sr`` and ``--only distill`` need no other phase.
 """
 
 from __future__ import annotations
@@ -188,6 +215,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -219,8 +247,10 @@ TRAIN_STEPS = 20
 # memory, by batch, from _gn_fwd_plan over the forward's 45 shapes (the
 # rest re-read it): none at the train batch; at the serving batches
 # (coalesced 16, solo 8) the shapes whose grid fills at most half the SMs;
-# at 32, a guided forward of 16 (the conditional and the NULL branch)
-GN_FWD_SMEM_PER_FORWARD = {TRAIN_BATCH: 0, 2 * BATCH: 23, BATCH: 25, BATCH // 2: 33}
+# at 32, a guided forward of 16 (the conditional and the NULL branch); at
+# 256, a distillation teacher's guided forward of the train batch
+GN_FWD_SMEM_PER_FORWARD = {2 * TRAIN_BATCH: 0, TRAIN_BATCH: 0, 2 * BATCH: 23, BATCH: 25,
+                           BATCH // 2: 33}
 
 KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_attn_fwd", "flash_attn_bwd_dq",
            "flash_attn_bwd_dkv")
@@ -3666,6 +3696,621 @@ def phase_sr(preset, base_sd, tmp):
     return res, worst
 
 
+# ------------------------------------------------------------------ distill
+
+DISTILL_KINDS = ("progressive", "consistency")
+DISTILL_START, DISTILL_END = 64, 16  # (b): two halving phases, 64 -> 32 -> 16
+DISTILL_PHASE_UPDATES = 3  # (b): updates per progressive phase
+CM_LADDER = 32  # (b): the consistency ladder's segments (the CLI's default)
+CM_UPDATES = 4  # (b): consistency updates
+DISTILL_TIMED = 5  # (b): updates of each kind timed on the host's clock
+DISTILL_CLI_UPDATES = 2  # (c): --phase-updates of each cli distill
+DISTILL_CLI_N = 16  # (c): the CLI's grids
+DISTILL_LR = 1e-4  # cli distill's defaults: no warmup, EMA 0.999
+DISTILL_EMA = 0.999
+#: (d) a served request against ddim_infer_sample from the same seed: the
+#: same kernels on the same rows, so the same bits up to PAIR_BAR
+C1_N, C1_STEPS = 8, 10
+#: (d) a coalesced sampler=cm request against its solo re-run at half the
+#: rows, through the same one forward in fp32 (TF32 off): phase 5's bar on
+#: the served pixels, after x0 = (z - s eps) / a has multiplied the raw
+#: output's differences by s / a = 156 at t = T-1
+CM_SOLO_BAR = 2e-2
+
+
+def distill_update_launches(kind):
+    """(launches, rows of each forward) of one guided update at TRAIN_BATCH,
+    from the config: a progressive update runs the teacher's two eta=0 DDIM
+    half-steps (each ONE forward of 2 x TRAIN_BATCH rows, the conditional
+    and the NULL branch) and the student's forward; a consistency update
+    one teacher step (2 x TRAIN_BATCH rows), the EMA target's forward and
+    the student's (TRAIN_BATCH each).  45 GN and 5 flash launches a forward
+    on the routes the GN plan names at its rows; the student's backward
+    once, the train step's 45/5/5 on its routes."""
+    teacher = 2 if kind == "progressive" else 1
+    rows = [2 * TRAIN_BATCH] * teacher + [TRAIN_BATCH] * (3 - teacher)
+    smem = sum(GN_FWD_SMEM_PER_FORWARD[r] for r in rows)
+    want = dict(LAUNCHES_PER_STEP)
+    want.update(gn_silu_fwd=GN_LAUNCHES_PER_FORWARD * len(rows), gn_silu_fwd_smem=smem,
+                gn_silu_fwd_reread=GN_LAUNCHES_PER_FORWARD * len(rows) - smem,
+                flash_attn_fwd=FLASH_LAUNCHES_PER_FORWARD * len(rows),
+                flash_attn_fwd_tc=FLASH_LAUNCHES_PER_FORWARD * len(rows))
+    return want, rows
+
+
+def check_distill_launches(name, counts, kind, updates):
+    """Raise unless ``counts`` are exactly ``updates`` guided updates of
+    ``kind`` (every kernel and route of ``distill_update_launches``)."""
+    per, _rows = distill_update_launches(kind)
+    want = {k: v * updates for k, v in per.items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want} after {updates} "
+                             f"{kind} updates")
+    return got
+
+
+def _distill_step(kind, model, sched, tx, cfg):
+    """The guided (GUIDANCE) update of ``kind`` on (b)'s ladders."""
+    from ddpm_diffusion_model_tpu_torch.training import (consistency_ladder, distill_ladder,
+                                                         make_consistency_step,
+                                                         make_distill_step)
+
+    if kind == "progressive":
+        return make_distill_step(model, sched, distill_ladder(sched.T, DISTILL_START // 2),
+                                 tx, cfg, guidance=GUIDANCE)
+    return make_consistency_step(model, sched, consistency_ladder(sched.T, CM_LADDER), tx,
+                                 cfg, guidance=GUIDANCE)
+
+
+def _distill_calls(model, sched, teacher_sd, batch, cfg):
+    """Every kernel-wrapper call of one guided update of each kind (the
+    model's weights are put back after each)."""
+    import collections
+
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.training import init_train_state
+
+    out = {}
+    for kind in DISTILL_KINDS:
+        model.load_state_dict(teacher_sd, strict=True)
+        state, tx = init_train_state(model, cfg, seed=1)
+        calls = []
+        with record_calls(calls):
+            _distill_step(kind, model, sched, tx, cfg)(state, teacher_sd, batch)
+        torch.cuda.synchronize()
+        _want, rows = distill_update_launches(kind)
+        kinds = collections.Counter(c[0] for c in calls)
+        gn_rows = collections.Counter(c[1][0] for c in calls if c[0] == "gn")
+        want_rows = collections.Counter()
+        for r in rows:
+            want_rows[r] += GN_LAUNCHES_PER_FORWARD
+        want = {"gn": GN_LAUNCHES_PER_FORWARD * 3, "flash_attn_fwd": FLASH_LAUNCHES_PER_FORWARD * 3,
+                "gn_bwd": GN_LAUNCHES_PER_FORWARD, "flash_attn_bwd_dq": FLASH_LAUNCHES_PER_FORWARD,
+                "flash_attn_bwd_dkv": FLASH_LAUNCHES_PER_FORWARD}
+        if dict(kinds) != want or gn_rows != want_rows \
+                or {c[1][0] for c in calls if c[0] == "gn_bwd"} != {TRAIN_BATCH}:
+            raise AssertionError(f"a {kind} update made the calls {dict(kinds)} (GN forward "
+                                 f"rows {dict(gn_rows)}), expected {want} (rows "
+                                 f"{dict(want_rows)})")
+        log(f"[distill] (a) one guided {kind} update at batch {TRAIN_BATCH} calls "
+            f"{dict(kinds)}; GN forwards by rows {dict(sorted(gn_rows.items()))}")
+        out[kind] = calls
+    model.load_state_dict(teacher_sd, strict=True)
+    return out
+
+
+def _distill_parity(cond, sched, teacher_sd, batch, cfg):
+    """(a) One whole update of each kind, fp32, from the teacher's weights
+    on injected draws: on the kernels against the plain versions at phase
+    6a's bars (loss 1e-5, grads and grad norm 1e-4 relative, the updated
+    params within 1e-2 of the update's move)."""
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+    from ddpm_diffusion_model_tpu_torch.training import DistillDraws, init_train_state
+
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    model = UNetDenoiser(cond.model, dtype=torch.float32, device="cuda")
+    model = model.to(memory_format=torch.channels_last)
+    res = {}
+    for kind in DISTILL_KINDS:
+        n = DISTILL_START // 2 if kind == "progressive" else CM_LADDER
+        draws = DistillDraws(torch.randint(0, n, (TRAIN_BATCH,), generator=gen, device="cuda"),
+                             torch.randn(batch[0].shape, generator=gen, device="cuda"))
+        runs = {}
+        for path, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_path)):
+            model.load_state_dict(teacher_sd, strict=True)
+            state, tx = init_train_state(model, cfg, seed=1)
+            grads, step_opt = [], tx.step
+
+            def record(params, g, st, step_opt=step_opt, grads=grads):
+                grads.append(_flat(g))  # before the clip scales them in place
+                step_opt(params, g, st)
+
+            tx.step = record
+            start = _flat(model.parameters())
+            reset_counts()
+            with no_tf32(), ctx():
+                state, m = _distill_step(kind, model, sched, tx, cfg)(state, teacher_sd, batch,
+                                                                      draws)
+            torch.cuda.synchronize()
+            params = _flat(model.parameters())
+            runs[path] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                              grads=grads[0], params=params, move=params - start,
+                              counts=read_counts())
+        k, p = runs["kernels"], runs["plain"]
+        eps32 = float(torch.finfo(torch.float32).eps)
+        e = {"loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+             "grad_norm": abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"],
+             "grads": float((k["grads"] - p["grads"]).norm() / p["grads"].norm()),
+             "params": float((k["params"] - p["params"]).norm()
+                             / (p["move"].norm() + eps32 * p["params"].norm()))}
+        fma = {key: k["counts"][f"{key}_fma"] for key in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                                          "flash_attn_bwd_dkv")}
+        want_fma = {"flash_attn_fwd": 3 * FLASH_LAUNCHES_PER_FORWARD,
+                    "flash_attn_bwd_dq": FLASH_LAUNCHES_PER_FORWARD,
+                    "flash_attn_bwd_dkv": FLASH_LAUNCHES_PER_FORWARD}
+        if not all(map(math.isfinite, (k["loss"], p["loss"]))) or e["loss"] > 1e-5 \
+                or e["grad_norm"] > 1e-4 or e["grads"] > 1e-4 or e["params"] > 1e-2 \
+                or fma != want_fma or any(v for key, v in p["counts"].items()
+                                          if key in KERNELS):
+            raise AssertionError(f"fp32 {kind} update on the kernels vs plain: {e}; FMA "
+                                 f"flash launches {fma} (want {want_fma}); plain path "
+                                 f"{ {key: p['counts'][key] for key in KERNELS} }")
+        res[kind] = dict(loss=p["loss"], grad_norm=p["grad_norm"], errors=e)
+        log(f"[distill] (a) one fp32 guided {kind} update from the teacher's weights on "
+            f"injected draws: loss {p['loss']:.6f}, grad norm {p['grad_norm']:.6f} (plain); "
+            f"kernels against plain, relative: {e}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _distill_runs(model, sched, teacher_sd, batches, cfg):
+    """(b) progressive_distill from DISTILL_START to DISTILL_END steps and
+    consistency_distill on a CM_LADDER ladder, guided, at TRAIN_BATCH;
+    launches exact per update; peak memory; then DISTILL_TIMED updates of
+    each kind: wall, device time, idle share, top kernels."""
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.training import (consistency_distill,
+                                                         init_train_state,
+                                                         progressive_distill)
+
+    res = {}
+    for kind in DISTILL_KINDS:
+        model.load_state_dict(teacher_sd, strict=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        say = lambda m: log(f"[distill] (b)   {m}")  # noqa: E731
+        reset_counts()
+        t0 = time.perf_counter()
+        if kind == "progressive":
+            _p, info = progressive_distill(
+                model, sched, teacher_sd, lambda: batches, start_steps=DISTILL_START,
+                end_steps=DISTILL_END, phase_updates=DISTILL_PHASE_UPDATES, cfg=cfg,
+                guidance=GUIDANCE, log=say)
+            updates = DISTILL_PHASE_UPDATES * len(info["phases"])
+        else:
+            _p, info = consistency_distill(
+                model, sched, teacher_sd, lambda: batches, num_ladder_steps=CM_LADDER,
+                updates=CM_UPDATES, cfg=cfg, guidance=GUIDANCE, log=say)
+            updates = CM_UPDATES
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = check_distill_launches(f"{kind} run", read_counts(), kind, updates)
+        losses = [v for p in info["phases"] for v in (p["first_loss"], p["last_loss"])]
+        if not all(map(math.isfinite, losses)) or \
+                (kind == "progressive" and [p["student_steps"] for p in info["phases"]]
+                 != [DISTILL_START // 2, DISTILL_START // 4]):
+            raise AssertionError(f"{kind} run: info {info}")
+        # one update at a time, timed
+        model.load_state_dict(teacher_sd, strict=True)
+        state, tx = init_train_state(model, cfg, seed=3)
+        step = _distill_step(kind, model, sched, tx, cfg)
+        fn = lambda: step(state, teacher_sd, batches[0])  # noqa: E731
+        wall = cuda_time_ms(fn, iters=DISTILL_TIMED, warmup=1)
+        dev, table = device_ms(fn, iters=2, warmup=0)
+        res[kind] = dict(updates=updates, seconds=sec, launches=launches,
+                         launches_per_update=distill_update_launches(kind)[0],
+                         info=info, peak_gib=peak, update_wall_ms=wall, update_device_ms=dev,
+                         idle_share=max(0.0, 1.0 - dev / wall))
+        log(f"[distill] (b) {kind}_distill, guidance {GUIDANCE:g} baked in, batch "
+            f"{TRAIN_BATCH} (teacher forwards at {2 * TRAIN_BATCH} rows): {updates} updates in "
+            f"{sec:.1f} s, launches {launches} (exact per update), phases "
+            + ", ".join(f"{p['student_steps']} steps: loss {p['first_loss']:.5f} -> "
+                        f"{p['last_loss']:.5f}" for p in info["phases"])
+            + f"; peak memory {peak:.2f} GiB")
+        log(f"[distill] (b) one {kind} update bf16: wall {wall:.3f} ms, device {dev:.3f} ms, "
+            f"device idle {100 * res[kind]['idle_share']:.1f}%")
+        for name, ms, count in table[:8]:
+            log(f"[distill]   {ms:8.4f} ms  x{count:<3d} {name[:110]}")
+    model.load_state_dict(teacher_sd, strict=True)
+    return res
+
+
+def _distill_cli(exp_d, teacher_dir, tmp, T):
+    """(c) ``cli distill`` in both modes from the teacher checkpoint on blob
+    faces in 10 class hues (device cache), then ``sample-ddim --schedule
+    linear`` on the progressive student and ``sample-cm`` on the
+    consistency student; each exits 0, launches exact, each PNG as
+    make_grid gives."""
+    import numpy as np
+    from PIL import Image
+
+    from ddpm_diffusion_model_tpu_torch.sampling import build_ddim_schedule
+    from ddpm_diffusion_model_tpu_torch.training import read_meta
+    from ddpm_diffusion_model_tpu_torch.utils.images import grid_nrow, make_grid
+
+    cfg_json = os.path.join(tmp, "teacher.json")
+    with open(cfg_json, "w") as f:
+        json.dump(exp_d, f)
+    common = ["--config", cfg_json, "--ckpt", teacher_dir, "--ema", "--data", "blobs",
+              "--synthetic-size", str(2 * TRAIN_BATCH), "--device-cache", "--guidance",
+              f"{GUIDANCE:g}"]
+    jobs = {"progressive": (["--start-steps", "8", "--to-steps", "2", "--phase-updates",
+                             str(DISTILL_CLI_UPDATES)], 2 * DISTILL_CLI_UPDATES, 2),
+            "consistency": (["--mode", "consistency", "--phase-updates",
+                             str(DISTILL_CLI_UPDATES)], DISTILL_CLI_UPDATES, 1)}
+    res, students = {}, {}
+    for kind, (extra, updates, steps) in jobs.items():
+        out_dir = os.path.join(tmp, f"student_{kind}")
+        reset_counts()
+        t0 = time.perf_counter()
+        with _cwd(tmp):
+            said = run_cli(["distill", *common, "--out", out_dir, *extra])
+        sec = time.perf_counter() - t0
+        launches = check_distill_launches(f"cli distill --mode {kind}", read_counts(), kind,
+                                          updates)
+        payload = json.loads(said.strip().splitlines()[-2])
+        meta = read_meta(out_dir)
+        ex = meta["extra"]
+        keys = {"distilled_steps", "distill_mode", "distill_guidance", "distill_phases"}
+        if kind == "consistency":
+            keys |= {"cm_sigma_data", "cm_timestep_scaling"}
+        if (set(ex) != keys or ex["distill_mode"] != kind or ex["distilled_steps"] != steps
+                or ex["distill_guidance"] != GUIDANCE or payload["steps"] != steps
+                or meta["configs"]["experiment"]["model"]["num_classes"] != NUM_CLASSES):
+            raise AssertionError(f"cli distill --mode {kind}: extra {ex}, said {payload}")
+        students[kind] = out_dir
+        res[f"distill_{kind}"] = dict(exit=0, seconds=sec, updates=updates,
+                                      launches=launches, extra=ex)
+        log(f"[distill] (c) cli distill {' '.join(extra)} --guidance "
+            f"{GUIDANCE:g}: exit 0, {updates} updates in {sec:.1f} s (the checkpoint's load "
+            f"and save included), launches {launches}; extra {sorted(ex)}, "
+            f"distilled_steps {steps}")
+    n = DISTILL_CLI_N
+    shape = make_grid(np.zeros((n, 64, 64, 3), np.float32), nrow=grid_nrow(n)).shape
+    linear = len(build_ddim_schedule("linear", 2, T)) - 1
+    samples = [("sample-ddim", students["progressive"],
+                ["--schedule", "linear", "--steps", "2", "--class-id", "all"], linear),
+               ("sample-cm", students["consistency"], ["--steps", "1"], 1),
+               ("sample-cm", students["consistency"], ["--steps", "2", "--class-id", "2"], 2)]
+    for cmd, ckpt, extra, forwards in samples:
+        png = os.path.join(tmp, f"distill_{cmd}_{len(res)}.png")
+        reset_counts()
+        t0 = time.perf_counter()
+        with _cwd(tmp):
+            said = run_cli([cmd, "--ckpt", ckpt, "--ema", "--n", str(n), *extra, "--out", png])
+        sec = time.perf_counter() - t0
+        launches = check_cfg_launches(f"cli {cmd}", read_counts(), forwards, n)
+        got = np.asarray(Image.open(png)).shape
+        if got != shape or (cmd == "sample-cm" and "--class-id" not in extra
+                            and "warning: conditional consistency student" not in said):
+            raise AssertionError(f"cli {cmd} {extra}: PNG {got} (make_grid gives {shape}), "
+                                 f"said {said[-300:]!r}")
+        res[f"{cmd} {' '.join(extra)}"] = dict(exit=0, seconds=sec, forwards=forwards,
+                                                launches=launches, png=list(got))
+        log(f"[distill] (c) cli {cmd} {' '.join(extra)} --n {n}: exit 0, {forwards} forwards "
+            f"at {n} rows, launches {launches['gn_silu_fwd']}/{launches['flash_attn_fwd']}, "
+            f"PNG {got} as make_grid gives, {sec:.2f} s")
+    return res, students
+
+
+def _distill_http(exp_d, tmp, cm_dir):
+    """(d) The service over checkpoint directories: one that ``train_ddpm``
+    wrote (through ``cli train``), whose /sample must equal
+    ddim_infer_sample from the same seed; and the consistency student:
+    /healthz, two concurrent sampler=cm requests in one batch, each equal
+    to its re-run beside another request at the same rows (PAIR_BAR) and to
+    its solo re-run (the same runs in fp32: pixels within CM_SOLO_BAR, raw
+    outputs within phase 4's 1e-5; the served bf16 pair and solo raw
+    outputs each as close to the fp32 ones as the other, phase 4's bf16
+    rule), moved by swapping the labels, steps=2, sampler=ddim and /edit
+    answer 400."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch import cli
+    from ddpm_diffusion_model_tpu_torch.sampling import ddim_infer_sample
+    from ddpm_diffusion_model_tpu_torch.serving import SamplerService, make_server
+    from ddpm_diffusion_model_tpu_torch.training import load_run
+    from ddpm_diffusion_model_tpu_torch.utils.images import encode_png, grid_nrow, make_grid
+
+    res = {}
+    cfg_json = os.path.join(tmp, "teacher.json")
+    ck = os.path.join(tmp, "ck_c1")
+    with _cwd(tmp):
+        run_cli(["train", "--config", cfg_json, "--data", "blobs", "--synthetic-size",
+                 str(TRAIN_BATCH), "--device-cache", "--epochs", "1", "--max-batches", "1",
+                 "--no-samples", "--ckpt-dir", ck])
+    last = os.path.join(ck, f"{exp_d['run_name']}_last")
+
+    def serve(path):
+        svc = SamplerService.from_checkpoint(path, device="cuda")
+        svc.COALESCE_WINDOW_S = SOLVER_PORT_WINDOW_S
+        server = make_server(svc, "127.0.0.1", 0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        return svc, server, th, f"http://127.0.0.1:{server.server_address[1]}"
+
+    def stop(server, th):
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+
+    def npy(base, query):
+        code, hdr, body = _get(f"{base}/sample?{query}&format=npy")
+        return code, hdr, np.load(io.BytesIO(body))
+
+    def refused(fn):
+        try:
+            fn()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+        return 200, ""
+
+    svc, server, th, base = serve(last)
+    try:
+        health = json.loads(_get(base + "/healthz")[2])
+        code, _h, x = npy(base, f"n={C1_N}&steps={C1_STEPS}&seed=5&class_id=2")
+        args = cli.build_parser().parse_args(["sample-ddim", "--ckpt", last])
+        model, sched, state, _meta = load_run(last, cli._exp_from_args(args), "cuda")
+        grid = ddim_infer_sample(model, None, sched, n=C1_N, img_size=64,
+                                 ema_params=state.ema_params, out_path=os.path.join(
+                                     tmp, "c1_ref.png"), seed=5, steps=C1_STEPS,
+                                 class_id=2, device="cuda")
+        diff = float(np.abs(make_grid(x, nrow=grid_nrow(C1_N)) - grid).max())
+        if code != 200 or health["consistency"] is not False or diff > PAIR_BAR \
+                or health["num_classes"] != NUM_CLASSES:
+            raise AssertionError(f"serving the train_ddpm directory: {code}, /healthz "
+                                 f"{health}, against ddim_infer_sample max |diff| {diff}")
+        res["c1"] = dict(code=code, max_diff=diff)
+        log(f"[distill] (d) the service over {os.path.basename(last)} (a directory "
+            f"train_ddpm wrote; its meta's experiment, EMA weights): /sample n={C1_N} "
+            f"steps={C1_STEPS} class 2 against ddim_infer_sample from the same seed: max "
+            f"|diff| {diff:.3e} (bar {PAIR_BAR:g})")
+    finally:
+        stop(server, th)
+    del model, state
+    torch.cuda.empty_cache()
+
+    svc, server, th, base = serve(cm_dir)
+    try:
+        health = json.loads(_get(base + "/healthz")[2])
+        if (health["consistency"] is not True or health["edit_modes"] != []
+                or "consistency_caveat" not in health):
+            raise AssertionError(f"/healthz of the consistency student: {health}")
+        h = BATCH // 2
+        q = lambda seed, cls: f"n={h}&seed={seed}&class_id={cls}"  # noqa: E731
+        seen = _forward_modes(svc.model)
+        raw_outs, capture = [], [False]
+
+        def keep(_m, _args, out):
+            if capture[0]:
+                raw_outs.append(out.detach().float().cpu())
+
+        svc.model.register_forward_hook(keep)
+
+        def with_raw(fn):
+            """fn()'s result and the student's raw outputs of its forwards."""
+            raw_outs.clear()
+            capture[0] = True
+            try:
+                got = fn()
+            finally:
+                capture[0] = False
+            return got, list(raw_outs)
+
+        def concurrent_pair(a, b):
+            """``a`` and ``b`` in one window; ``b`` leaves a fifth of the
+            window after ``a``, so ``a`` takes the batch's first rows."""
+            m0 = svc.metrics()["multi_request_batches"]
+            with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+                fa = ex.submit(npy, base, q(*a))
+                time.sleep(SOLVER_PORT_WINDOW_S / 5)
+                fb = ex.submit(npy, base, q(*b))
+                got = fa.result()[2], fb.result()[2]
+            return got, svc.metrics()["multi_request_batches"] - m0
+
+        reset_counts()
+        ((xa, xb), merged), pair_raw = with_raw(lambda: concurrent_pair((1, 0), (2, 7)))
+        torch.cuda.synchronize()
+        pair_rows = list(seen["batches"])
+        counts = read_counts()
+        launches = check_cfg_launches("sampler=cm pair", counts, 1, BATCH)
+        # each request again at its rows beside a request of another seed and
+        # class: a batch of the pair's shape, so only the company moved
+        (ra, _c), m_a = concurrent_pair((1, 0), RERUN_COMPANY)
+        (_c, rb), m_b = concurrent_pair(RERUN_COMPANY, (2, 7))
+        rerun_err = max(float(np.abs(ra - xa).max()), float(np.abs(rb - xb).max()))
+        # the labels swapped must move the rows, the served and the raw ones
+        ((sa, sb), m_s), swap_raw = with_raw(lambda: concurrent_pair((1, 7), (2, 0)))
+        # and alone, at half the rows
+        solo, solo_raw = with_raw(lambda: [npy(base, q(1, 0))[2], npy(base, q(2, 7))[2]])
+        if [tuple(o.shape[:1]) for o in pair_raw + swap_raw + solo_raw] != [(BATCH,)] * 2 \
+                + [(h,)] * 2:
+            raise AssertionError("sampler=cm raw outputs: rows "
+                                 f"{[o.shape for o in pair_raw + swap_raw + solo_raw]}")
+        pr, sw = pair_raw[0], swap_raw[0]
+        solo16 = torch.cat(solo_raw)
+        raw_solo_err = float((pr - solo16).abs().max())
+        raw_swap = min(float((sw[:h] - pr[:h]).abs().max()), float((sw[h:] - pr[h:]).abs().max()))
+        swap_diff = min(float(np.abs(sa - xa).max()), float(np.abs(sb - xb).max()))
+        solo_d = np.concatenate([np.abs(xa - solo[0]).ravel(), np.abs(xb - solo[1]).ravel()])
+        # the same pair and solo runs through the one forward in fp32, TF32
+        # off: the served pixels hold at the solo bar there
+        from ddpm_diffusion_model_tpu_torch.models import UNetDenoiser
+        from ddpm_diffusion_model_tpu_torch.training import cm_from_init
+
+        m32 = UNetDenoiser(svc.model.config, dtype=torch.float32, device="cuda").to(
+            memory_format=torch.channels_last).eval()
+        m32.load_state_dict(svc.model.state_dict())
+        raw32 = []
+        m32.register_forward_hook(lambda _m, _a, out: raw32.append(out.detach().float().cpu()))
+        x_init = torch.cat([svc._init_noise(h, 1), svc._init_noise(h, 2)])
+        y = torch.tensor([0] * h + [7] * h, device="cuda")
+        kw = dict(sigma_data=svc.cm_sigma_data, timestep_scaling=svc.cm_timestep_scaling)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            pair32 = cm_from_init(m32, None, svc.sched, x_init, y=y, **kw)
+            solo32 = torch.cat([cm_from_init(m32, None, svc.sched, x_init[r], y=y[r], **kw)
+                                for r in (slice(0, h), slice(h, None))])
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        fp32_solo_err = float((pair32 - solo32).abs().max()) / 2  # in [0, 1] pixels
+        del m32
+
+        def rel(a, b):  # relative RMS error
+            return float((a - b).norm() / b.norm())
+
+        # phase 4's rules: fp32 differs only in the order of the sums; the
+        # bf16 pair and solo runs each as close to fp32 as the other
+        p32 = raw32[0]
+        raw_rel = {"fp32_pair_vs_solo": rel(p32, torch.cat(raw32[1:])),
+                   "bf16_pair_vs_fp32": rel(pr, p32), "bf16_solo_vs_fp32": rel(solo16, p32)}
+        e_p, e_s = raw_rel["bf16_pair_vs_fp32"], raw_rel["bf16_solo_vs_fp32"]
+        if (merged, m_a, m_b, m_s) != (1, 1, 1, 1) or pair_rows != [BATCH] \
+                or rerun_err > PAIR_BAR or float(np.abs(xa - xb).max()) < 1e-3 \
+                or fp32_solo_err > CM_SOLO_BAR or raw_rel["fp32_pair_vs_solo"] > 1e-5 \
+                or e_p > 1.25 * e_s + 1e-3 or e_s > 1.25 * e_p + 1e-3 \
+                or swap_diff <= PAIR_CONTROL * PAIR_BAR or raw_swap <= PAIR_CONTROL * PAIR_BAR:
+            raise AssertionError(
+                f"sampler=cm pair: multi-request batches {(merged, m_a, m_b, m_s)}, rows "
+                f"{pair_rows}, against the re-runs at the same rows max |diff| {rerun_err} "
+                f"(bar {PAIR_BAR}); against the solo re-runs the fp32 pixels {fp32_solo_err} "
+                f"(bar {CM_SOLO_BAR}), raw relative RMS {raw_rel}; labels swapped "
+                f"{swap_diff}, raw {raw_swap} (must exceed {PAIR_CONTROL * PAIR_BAR})")
+        face = _faces(1)[0] * 0.5 + 0.5
+        edit = urllib.request.Request(base + "/edit", data=json.dumps({
+            "image": base64.b64encode(encode_png(face)).decode()}).encode(), method="POST")
+        bad = {"steps=2": refused(lambda: _get(f"{base}/sample?n=1&steps=2")),
+               "sampler=ddim": refused(lambda: _get(f"{base}/sample?n=1&sampler=ddim&steps=1")),
+               "/edit": refused(lambda: urllib.request.urlopen(edit, timeout=60))}
+        if {k: v[0] for k, v in bad.items()} != dict.fromkeys(bad, 400):
+            raise AssertionError(f"the student's refusals: {bad}")
+        res["cm"] = dict(healthz=health, pair_launches=launches, merged=merged,
+                         rerun_max_diff=rerun_err, raw_solo_max_diff=raw_solo_err,
+                         raw_max_abs=float(pr.abs().max()), raw_rel=raw_rel,
+                         fp32_solo_max_diff=fp32_solo_err, swap_diff=swap_diff,
+                         raw_swap_diff=raw_swap, solo_max_diff=float(solo_d.max()),
+                         solo_mean_diff=float(solo_d.mean()),
+                         solo_share_over_2e_2=float((solo_d > CM_SOLO_BAR).mean()),
+                         refused={k: v[0] for k, v in bad.items()})
+        log(f"[distill] (d) the service over the consistency student: /healthz consistency "
+            f"{health['consistency']}, edit_modes {health['edit_modes']}, the caveat; two "
+            f"sampler=cm requests (n={BATCH // 2}, classes 0 and 7) in {merged} batch of "
+            f"{BATCH} rows, one forward, launches {launches['gn_silu_fwd']}/"
+            f"{launches['flash_attn_fwd']}; against their re-runs beside another request at "
+            f"the same rows max |diff| {rerun_err:.3e} (bar {PAIR_BAR:g}); against their solo "
+            f"re-runs at {h} rows: the same runs in fp32 {fp32_solo_err:.3e} in [0,1] pixels "
+            f"(bar {CM_SOLO_BAR:g}); raw outputs (max |value| {float(pr.abs().max()):.3f}) "
+            f"relative RMS {raw_rel} (bars 1e-5 and each bf16 run within 1.25x + 1e-3 of the "
+            f"other), bf16 max |diff| {raw_solo_err:.3e}; the bf16 pixels max "
+            f"{solo_d.max():.3e}, mean "
+            f"{solo_d.mean():.3e}, {100 * (solo_d > CM_SOLO_BAR).mean():.2f}% beyond "
+            f"{CM_SOLO_BAR:g} (not held: s / a = 156 at t = T-1 multiplies the raw output's "
+            f"bf16 differences); labels swapped {swap_diff:.3e}, raw {raw_swap:.3e} (must "
+            f"exceed {PAIR_CONTROL * PAIR_BAR:g}); steps=2, sampler=ddim and "
+            "/edit -> " + ", ".join(str(v[0]) for v in bad.values()))
+    finally:
+        stop(server, th)
+    return res
+
+
+def phase_distill(preset, base_sd, images, tmp):
+    """Progressive and consistency distillation on the 10-class
+    celeba64_attn at full width, guidance GUIDANCE baked in: (a) every
+    kernel call of one guided update of each kind against its plain
+    version (the teacher's forwards at 2 x TRAIN_BATCH rows) and one whole
+    update of each kind on the kernels against the plain versions in fp32;
+    (b) progressive_distill and consistency_distill, launches exact, peak
+    memory, each update's wall, device time and idle share; the kernels'
+    times at the guided teacher's forward; (c) the CLI; (d) the server.
+    Launches exact on every path, its counts set to 0 just before it and
+    read just after."""
+    import numpy as np
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.ops import make_schedule
+    from ddpm_diffusion_model_tpu_torch.sampling import cfg_eps_fn
+    from ddpm_diffusion_model_tpu_torch.training import (TrainConfig, init_train_state,
+                                                         save_checkpoint)
+    from ddpm_diffusion_model_tpu_torch.utils.config import ExperimentConfig
+
+    exp_d = dict(cond_experiment(preset), run_name="celeba64_attn_teacher")
+    cond = ExperimentConfig.from_dict(exp_d)
+    sched = make_schedule(cond.diffusion, device="cuda")
+    labels = (np.arange(len(images)) % NUM_CLASSES).astype(np.int64)
+    batches = [(torch.from_numpy(images[i:i + TRAIN_BATCH]).cuda(),
+                torch.from_numpy(labels[i:i + TRAIN_BATCH]).cuda())
+               for i in range(0, 2 * TRAIN_BATCH, TRAIN_BATCH)]
+    # the distillation optimizer of cli distill's defaults
+    cfg = TrainConfig(base_lr=DISTILL_LR, warmup_steps=0, ema_decay=DISTILL_EMA,
+                      grad_clip=cond.train.grad_clip)
+    res = {"params": CFG_PARAMS, "batch": TRAIN_BATCH, "teacher_rows": 2 * TRAIN_BATCH,
+           "guidance": GUIDANCE}
+
+    # the teacher: the seeded 10-class model, saved as a port checkpoint
+    model = build_cond_model(cond, base_sd)
+    teacher_sd = {k: v.detach().clone() for k, v in model.named_parameters()}
+    teacher_dir = os.path.join(tmp, "teacher")
+    save_checkpoint(teacher_dir, init_train_state(model, cond.train)[0],
+                    configs={"experiment": exp_d})
+
+    # (a) every kernel call of a guided update of each kind; the fp32 update
+    calls = _distill_calls(model, sched, teacher_sd, batches[0], cfg)
+    held = list(dict.fromkeys(calls["progressive"] + calls["consistency"]))
+    extra = len(set(calls["consistency"]) - set(calls["progressive"]))
+    with no_tf32():
+        worst = hold_calls(held, torch.Generator(device="cuda").manual_seed(43),
+                           label="distill update: ")
+    log(f"[distill] (a) {len(held)} distinct kernel calls of the two updates held against "
+        f"their plain versions in bf16 and fp32 ({extra} of the consistency update's not in "
+        "the progressive update's)")
+    res["parity"] = _distill_parity(cond, sched, teacher_sd, batches[0], cfg)
+
+    # the kernels' times at the guided teacher's forward (2 x TRAIN_BATCH rows)
+    fwd_calls = []
+    with torch.inference_mode(), record_calls(fwd_calls):
+        cfg_eps_fn(model, sched, y=batches[0][1], guidance=GUIDANCE)(
+            batches[0][0], torch.full((TRAIN_BATCH,), 500, device="cuda"))
+    torch.cuda.synchronize()
+    teacher_tot = kernel_totals(fwd_calls, f"guided teacher forward ({2 * TRAIN_BATCH} rows)")
+    res["teacher_forward_kernels"] = teacher_tot
+
+    # (b) the runs
+    res["runs"] = _distill_runs(model, sched, teacher_sd, batches, cfg)
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) the CLI, (d) the server
+    res["cli"], students = _distill_cli(exp_d, teacher_dir, tmp, cond.diffusion.T)
+    res["http"] = _distill_http(exp_d, tmp, students["consistency"])
+    launches = {k: {**{f"{kind}_run": res["runs"][kind]["launches"][k]
+                       for kind in DISTILL_KINDS},
+                    **{p: v["launches"][k] for p, v in res["cli"].items()},
+                    "http_cm_pair": res["http"]["cm"]["pair_launches"][k]} for k in KERNELS}
+    res["launches"] = launches
+    return res, worst, teacher_tot
+
+
 def phase_remat(preset, base_sd, images):
     """One train step of celeba64_attn at batch 128, dropout 0.1, from the
     same weights and seed with remat False, True and "masks": the updated
@@ -4211,7 +4856,7 @@ SOURCE = {"gn_silu_fwd": "gn_silu.cu", "gn_silu_bwd": "gn_silu.cu",
 
 
 PHASES = ("kernels", "unet", "serving", "train", "run", "sample", "solvers", "remat", "hq256",
-          "data", "cfg", "sr", "times")
+          "data", "cfg", "sr", "distill", "times")
 
 
 def main(argv=None) -> int:
@@ -4294,6 +4939,11 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(dir=str(REPO / "build")) as tmp:
             sr, sr_worst = phase_sr(preset, base_sd, tmp)
         phase_s["sr"] = time.perf_counter() - t0
+    if "distill" in only:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=str(REPO / "build")) as tmp:
+            distill, distill_worst, distill_tot = phase_distill(preset, base_sd, images, tmp)
+        phase_s["distill"] = time.perf_counter() - t0
     log(f"[phases] seconds of the slice's phases: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     if only != set(PHASES):
@@ -4311,7 +4961,7 @@ def main(argv=None) -> int:
             "name": k, "route": "cuda", "source": f"{PKG}/csrc/{SOURCE[k]}",
             "replaces": REPLACES[k], "launches": train["launches"][k],
             "max_abs_err": max(worst[k], hq["worst"][k], solvers_worst[k], cfg_worst[k],
-                               sr_worst[k]),
+                               sr_worst[k], distill_worst[k]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["flops_ms"] else "operations",
@@ -4327,7 +4977,9 @@ def main(argv=None) -> int:
                                  **{f"solvers_{p}": v
                                     for p, v in solvers["launches"][k].items()},
                                  **{f"cfg_{p}": v for p, v in cfg["launches"][k].items()},
-                                 **{f"sr_{p}": v for p, v in sr["launches"][k].items()}},
+                                 **{f"sr_{p}": v for p, v in sr["launches"][k].items()},
+                                 **{f"distill_{p}": v
+                                    for p, v in distill["launches"][k].items()}},
         }
         if k in tot:  # the forward kernels also serve
             s = tot[k]
@@ -4342,6 +4994,16 @@ def main(argv=None) -> int:
                         "bound_by": "bytes" if h["bytes_ms"] >= h["flops_ms"] else "operations",
                         "library_ms": h["library_ms"],
                         "per": f"{HQ_PRESET} train step, batch 64 = 8 x 8, bf16, remat=True"}
+        row["distill"] = {"launches_per_update": {
+            kind: distill["runs"][kind]["launches_per_update"][k] for kind in DISTILL_KINDS},
+            "max_abs_err": distill_worst[k]}
+        if k in distill_tot:  # the forward kernels at the guided teacher's 256 rows
+            d = distill_tot[k]
+            row["distill"].update(
+                ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+                bound_by="bytes" if d["bytes_ms"] >= d["flops_ms"] else "operations",
+                library_ms=d["library_ms"],
+                per=f"guided teacher forward, {2 * TRAIN_BATCH} rows, bf16")
         kernels.append(row)
     log(json.dumps({"kernels": kernels, "train_step_b128_bf16": train,
                     "train_parity": parity, "unet_forward_b16_bf16": fwd,
@@ -4350,6 +5012,8 @@ def main(argv=None) -> int:
                     "run": run, "sample": sample, "remat": remat,
                     "hq256": {k: v for k, v in hq.items() if k != "worst"},
                     "data": data, "solvers": solvers, "cfg": cfg, "sr": sr,
+                    "distill": {k: v for k, v in distill.items()
+                                if k != "teacher_forward_kernels"},
                     "phase_seconds": phase_s,
                     "profiler_retraces": TRACE_RETRIES, "card": smi}))
     log(nvidia_smi_line())

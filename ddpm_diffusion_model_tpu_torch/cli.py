@@ -12,6 +12,9 @@ modules are ported:
     python -m ddpm_diffusion_model_tpu_torch.cli train --preset sr64to256 --data zip --zip-path faces256.zip --no-crop
     python -m ddpm_diffusion_model_tpu_torch.cli upsample --ckpt checkpoints/sr64to256_last --init face64.png
     python -m ddpm_diffusion_model_tpu_torch.cli cascade --ckpt checkpoints/sr64to256_last --base-ckpt checkpoints/celeba64_attn_last
+    python -m ddpm_diffusion_model_tpu_torch.cli distill --ckpt checkpoints/celeba64_attn_last --out student --to-steps 4
+    python -m ddpm_diffusion_model_tpu_torch.cli distill --ckpt checkpoints/celeba64_attn_last --out cm --mode consistency
+    python -m ddpm_diffusion_model_tpu_torch.cli sample-cm --ckpt cm --steps 1
     python -m ddpm_diffusion_model_tpu_torch.cli strip --ckpt checkpoints/celeba64_attn_last --sampler ddim
     python -m ddpm_diffusion_model_tpu_torch.cli eval --ckpt checkpoints/celeba64_attn_last --data blobs
     python -m ddpm_diffusion_model_tpu_torch.cli info --preset celebahq256
@@ -27,7 +30,10 @@ runs unless it is asked for).  Checkpoints are the port's directories
 (``--preset sr64to256``, or a config with ``model.cond_channels`` and
 ``train.superres_factor``) trains on its batches' own low-res views,
 upsamples a low-res image (``upsample``) and chains a base checkpoint
-(``cascade``).  Flags whose modules are not
+(``cascade``).  ``distill`` halves a checkpoint's DDIM ladder (progressive)
+or trains a consistency student (``--mode consistency``), with guidance
+baked in by ``--guidance``; ``sample-cm`` samples a consistency student.
+Flags whose modules are not
 ported (meshes, the sharded cache, latent diffusion, ``--data hf``) exit
 with "... is not ported yet"; the JAX CLI's other commands come with their
 modules.
@@ -44,31 +50,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .training.restore import build_model, checkpoint_experiment, load_run
+
 _NOT_PORTED = "is not ported yet"
 
 
 def _not_ported(what: str):
     sys.exit(f"error: {what} {_NOT_PORTED}")
-
-
-def _build(exp, device):
-    from .models import UNetDenoiser
-    from .ops import make_schedule
-
-    torch.manual_seed(exp.seed)  # the seeded init of a fresh run
-    model = UNetDenoiser(exp.model, dtype=torch.bfloat16, device=device,
-                         remat=exp.remat).to(memory_format=torch.channels_last)
-    return model, make_schedule(exp.diffusion, device=device)
-
-
-def _load_state(ckpt, exp, device):
-    """The model, schedule, train state and meta of a port checkpoint."""
-    from .training import init_train_state, load_checkpoint
-
-    model, sched = _build(exp, device)
-    template, _ = init_train_state(model, exp.train)
-    state, meta = load_checkpoint(ckpt, template)
-    return model, sched, state, meta
 
 
 def _exp_from_args(args):
@@ -79,11 +67,7 @@ def _exp_from_args(args):
             return ExperimentConfig.from_json(f.read())
     exp = get_preset(args.preset)
     if getattr(args, "ckpt", None):
-        from .training.checkpoint import read_meta
-
-        meta = read_meta(args.ckpt) or {}
-        if meta.get("configs", {}).get("experiment"):
-            return ExperimentConfig.from_dict(meta["configs"]["experiment"], legacy=True)
+        return checkpoint_experiment(args.ckpt) or exp
     return exp
 
 
@@ -233,7 +217,7 @@ def cmd_train(args):
             **exp.to_dict(),
             "train": {**exp.train.to_dict(), "loss_weighting": args.loss_weighting}})
     device = args.device
-    model, sched = _build(exp, device)
+    model, sched = build_model(exp, device)
     loader, eval_loader = _make_loader(args, exp, device,
                                        with_eval=bool(getattr(args, "eval_every", 0)))
 
@@ -341,7 +325,7 @@ def cmd_sample_ddpm(args):
     _check_sampling_flags(args)
     exp = _exp_from_args(args)
     cls = _class_vec(args, exp)  # flag mistakes fail before the checkpoint loads
-    model, sched, state, _meta = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _meta = load_run(args.ckpt, exp, args.device)
     ddpm_infer_sample(model, None, sched, n=args.n, img_size=exp.img_size,
                       ema_params=state.ema_params if args.ema else None,
                       out_path=args.out, seed=args.seed,
@@ -356,7 +340,7 @@ def cmd_sample_ddim(args):
     _check_sampling_flags(args)
     exp = _exp_from_args(args)
     cls = _class_vec(args, exp)
-    model, sched, state, _meta = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _meta = load_run(args.ckpt, exp, args.device)
     if args.refresh_every > 1:
         # encoder-cached: decoder-only reuse steps between encoder refreshes
         ddim_sample_fast(model, None, sched, n=args.n, img_size=exp.img_size,
@@ -382,7 +366,7 @@ def cmd_sample_dpmpp(args):
     _check_sampling_flags(args)
     exp = _exp_from_args(args)
     cls = _class_vec(args, exp)
-    model, sched, state, _meta = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _meta = load_run(args.ckpt, exp, args.device)
     dpmpp_infer_sample(model, None, sched, n=args.n, img_size=exp.img_size,
                        ema_params=state.ema_params if args.ema else None,
                        out_path=args.out, seed=args.seed, steps=args.steps,
@@ -394,6 +378,121 @@ def cmd_sample_dpmpp(args):
           f"{_cfg_msg(args)}")
 
 
+def cmd_distill(args):
+    """Progressive distillation (halve a checkpoint's DDIM ladder down to
+    ``--to-steps``, ``training/distill.py``) or consistency distillation
+    (``--mode consistency``, ``training/consistency.py``).  A progressive
+    student samples with ``sample-ddim --schedule linear --steps
+    <to-steps>``, a consistency student with ``sample-cm``; a
+    ``--guidance`` teacher bakes classifier-free guidance into the student,
+    which then samples guided at one forward's cost."""
+    from .training import (TrainConfig, consistency_distill, init_train_state,
+                           progressive_distill, save_checkpoint)
+
+    exp = _exp_from_args(args)
+    nc = int(getattr(exp.model, "num_classes", 0))
+    if args.guidance is not None and not nc:
+        sys.exit("error: --guidance needs a class-conditional checkpoint "
+                 "(the student distills the guided conditional sampler)")
+    model, sched, state, _ = load_run(args.ckpt, exp, args.device)
+    teacher = state.ema_params if args.ema else None  # None: the raw params
+    if sched.prediction_type == "epsilon" and args.mode == "progressive":
+        print("[DISTILL] note: epsilon-prediction teacher — distillation "
+              "works but v-prediction teachers distill better at few steps "
+              "(Salimans & Ho 2022 §4; train with prediction_type: 'v')")
+
+    loader, _ = _make_loader(args, exp, args.device)
+    cfg = TrainConfig(base_lr=args.lr, warmup_steps=0, ema_decay=args.ema_decay,
+                      grad_clip=exp.train.grad_clip,
+                      flat_optimizer=exp.train.flat_optimizer)
+    if args.mode == "consistency":
+        params, info = consistency_distill(
+            model, sched, teacher, make_batches=lambda: loader,
+            num_ladder_steps=args.ladder_steps, updates=args.phase_updates, cfg=cfg,
+            guidance=args.guidance, distance=args.distance, seed=exp.seed)
+    else:
+        params, info = progressive_distill(
+            model, sched, teacher, make_batches=lambda: loader,
+            start_steps=args.start_steps, end_steps=args.to_steps,
+            phase_updates=args.phase_updates, cfg=cfg, guidance=args.guidance,
+            weighting=args.weighting, seed=exp.seed)
+
+    # the student as a fresh state: params and EMA both the student's
+    model.load_state_dict(params, strict=True)
+    out_state, _ = init_train_state(model, cfg, seed=exp.seed)
+    extra = {"distilled_steps": info["steps"], "distill_mode": args.mode,
+             "distill_guidance": args.guidance, "distill_phases": info["phases"]}
+    if args.mode == "consistency":
+        # sample-cm and the service reproduce the distilled f exactly
+        extra.update(cm_sigma_data=info["sigma_data"],
+                     cm_timestep_scaling=info["timestep_scaling"])
+    path = save_checkpoint(args.out, out_state, extra=extra,
+                           configs={"experiment": exp.to_dict()})
+    print(json.dumps({"out": path, "mode": args.mode, "steps": info["steps"],
+                      "phases": info["phases"]}))
+    if args.mode == "consistency":
+        print(f"[DISTILL] consistency student -> {path}; sample with: "
+              f"sample-cm --ckpt {args.out} --steps 1"
+              + (" --class-id all" if nc else ""))
+    else:
+        print(f"[DISTILL] student -> {path}; sample with: sample-ddim "
+              f"--ckpt {args.out} --schedule linear --steps {info['steps']}"
+              + (" --class-id all" if nc else ""))
+
+
+def cmd_sample_cm(args):
+    """Sample a consistency student (``training/consistency.py``): one
+    forward per image at ``--steps 1``, the stochastic multistep refinement
+    at ``--steps N``.  Guidance is baked in at distillation time, so
+    ``--guidance`` is refused here."""
+    from .training import consistency_sample_loop
+    from .training.consistency import SIGMA_DATA, TIMESTEP_SCALING
+    from .utils.images import save_image_grid
+
+    if getattr(args, "vae", None):
+        sys.exit("sample-cm: latent consistency checkpoints are not "
+                 "supported; distill in pixel space")
+    if getattr(args, "guidance", 1.0) != 1.0:
+        sys.exit("sample-cm: guidance is baked into the student at distill "
+                 "time (distill --mode consistency --guidance W); "
+                 "sample with --class-id only")
+    exp = _exp_from_args(args)
+    cls = _class_vec(args, exp)
+    model, sched, state, meta = load_run(args.ckpt, exp, args.device)
+    extra = (meta or {}).get("extra", {}) or {}
+    mode = extra.get("distill_mode")
+    if mode != "consistency":
+        # a base or progressive student has no consistency parameterization:
+        # f would run and emit garbage
+        sys.exit(f"sample-cm: checkpoint {args.ckpt} is not a consistency "
+                 f"student (meta distill_mode={mode!r}); produce one with "
+                 "distill --mode consistency, or sample this checkpoint "
+                 "with sample-ddpm/sample-ddim/sample-dpmpp")
+    nc = int(getattr(exp.model, "num_classes", 0))
+    y = None
+    if nc:
+        if cls is None:
+            # the consistency loss supervises only real labels: the NULL
+            # class's pathway is untrained
+            print("[SAMPLE-CM] warning: conditional consistency student — "
+                  "unconditional (no --class-id) output rides the untrained "
+                  "NULL class and may be degraded; pass --class-id K or "
+                  "'all'")
+            cls = nc
+        y = np.broadcast_to(np.asarray(cls, np.int64), (args.n,)).copy()
+    S = exp.img_size
+    x = consistency_sample_loop(
+        model, state.ema_params if args.ema else None, sched,
+        (args.n, S, S, model.config.in_channels), seed=args.seed, steps=args.steps, y=y,
+        sigma_data=float(extra.get("cm_sigma_data", SIGMA_DATA)),
+        timestep_scaling=float(extra.get("cm_timestep_scaling", TIMESTEP_SCALING)),
+        device=args.device)
+    save_image_grid(((x + 1.0) * 0.5).float().cpu().numpy(), args.out,
+                    nrow=int(args.n ** 0.5))
+    print(f"[SAMPLE-CM] grid -> {args.out} (steps={args.steps}, NFE="
+          f"{args.steps}){_cfg_msg(args)}")
+
+
 def cmd_img2img(args):
     from .sampling import img2img_infer_sample
     from .utils.images import load_image
@@ -401,7 +500,7 @@ def cmd_img2img(args):
     _check_sampling_flags(args)
     exp = _exp_from_args(args)
     cls = _class_vec(args, exp)
-    model, sched, state, _ = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _ = load_run(args.ckpt, exp, args.device)
     init01 = load_image(args.init, size=exp.img_size)
     img2img_infer_sample(model, None, sched, init01 * 2.0 - 1.0, n=args.n,
                          strength=args.strength, steps=args.steps, eta=args.eta,
@@ -423,7 +522,7 @@ def cmd_inpaint(args):
     _check_sampling_flags(args)
     exp = _exp_from_args(args)
     cls = _class_vec(args, exp)
-    model, sched, state, _ = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _ = load_run(args.ckpt, exp, args.device)
     init01 = load_image(args.init, size=exp.img_size)
     if args.mask is not None:
         # white (1) = keep, black (0) = generate
@@ -453,7 +552,7 @@ def cmd_upsample(args):
                  " — train one with TrainConfig.superres_factor"
                  " (e.g. --preset sr64to256)")
     cls = _class_vec(args, exp)
-    model, sched, state, _ = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _ = load_run(args.ckpt, exp, args.device)
     low01 = load_image(args.init, size=args.low_size)
     upsample_infer_sample(model, None, sched, low01 * 2.0 - 1.0, n=args.n,
                           steps=args.steps, eta=args.eta, seed=args.seed, out_path=args.out,
@@ -473,8 +572,8 @@ def cmd_cascade(args):
         sys.exit("error: --ckpt must be an image-conditional (SR) checkpoint"
                  " (cond_channels > 0); the base model goes in --base-ckpt")
     cls = _class_vec(args, base_exp)
-    base_model, base_sched, base_state, _ = _load_state(args.base_ckpt, base_exp, args.device)
-    sr_model, sr_sched, sr_state, _ = _load_state(args.ckpt, sr_exp, args.device)
+    base_model, base_sched, base_state, _ = load_run(args.base_ckpt, base_exp, args.device)
+    sr_model, sr_sched, sr_state, _ = load_run(args.ckpt, sr_exp, args.device)
     cascade_infer_sample(
         base_model, base_state.ema_params if args.ema else None, base_sched,
         sr_model, sr_state.ema_params if args.ema else None, sr_sched,
@@ -491,7 +590,7 @@ def cmd_strip(args):
     from .sampling import render_denoise_strip, render_denoise_strip_ddim
 
     exp = _exp_from_args(args)
-    model, sched, state, _ = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, _ = load_run(args.ckpt, exp, args.device)
     p = state.ema_params if args.ema else None
     if args.sampler == "ddim":
         render_denoise_strip_ddim(model, p, sched, img_size=exp.img_size, out_path=args.out,
@@ -527,7 +626,7 @@ def cmd_eval(args):
     if args.data == "celeba" and nc:
         sys.exit("error: --data celeba has no labels; evaluate "
                  "conditional checkpoints with --data blobs/synthetic")
-    model, sched, state, meta = _load_state(args.ckpt, exp, args.device)
+    model, sched, state, meta = load_run(args.ckpt, exp, args.device)
     n_eval = max(args.eval_size // exp.batch_size, 1) * exp.batch_size
     if args.data == "celeba":
         _tr, eval_loader, _te = get_celeba_loaders(
@@ -716,6 +815,61 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stochastic SDE-DPM-Solver++(2M): fresh noise each step")
     cfg_args(sp)
     sp.set_defaults(fn=cmd_sample_dpmpp)
+
+    sp = sub.add_parser(
+        "distill",
+        help="progressive distillation (halve a checkpoint's DDIM ladder down to "
+             "--to-steps) or consistency distillation; optionally bake guidance in")
+    common(sp, ckpt_required=True)
+    sp.add_argument("--out", required=True,
+                    help="output checkpoint directory for the student")
+    sp.add_argument("--data", default="blobs",
+                    choices=["synthetic", "blobs", "zip", "hf", "celeba"])
+    sp.add_argument("--zip-path")
+    sp.add_argument("--no-crop", action="store_true")
+    sp.add_argument("--data-dir", default="data")
+    sp.add_argument("--synthetic-size", type=int, default=512)
+    sp.add_argument("--preload", action="store_true")
+    sp.add_argument("--device-cache", action="store_true")
+    sp.add_argument("--val-frac", type=float, default=0.0, metavar="F",
+                    help="with --data zip: exclude the seeded held-out fraction the "
+                         "train run held out")
+    sp.add_argument("--start-steps", type=int, default=64,
+                    help="the teacher's DDIM step count (the first student learns "
+                         "start-steps/2)")
+    sp.add_argument("--to-steps", type=int, default=4,
+                    help="stop when the student reaches this many steps")
+    sp.add_argument("--phase-updates", type=int, default=400,
+                    help="optimizer updates per halving phase")
+    sp.add_argument("--lr", type=float, default=1e-4,
+                    help="distillation LR (no warmup; lower than training)")
+    sp.add_argument("--ema-decay", type=float, default=0.999,
+                    help="student EMA (the EMA student seeds the next phase)")
+    sp.add_argument("--guidance", type=float, default=None, metavar="W",
+                    help="bake guidance at this scale into the student (conditional "
+                         "checkpoints; the student then samples guided at guidance=1 "
+                         "cost)")
+    sp.add_argument("--weighting", default="truncated_snr",
+                    choices=["truncated_snr", "snr", "uniform"])
+    sp.add_argument("--mode", default="progressive", choices=["progressive", "consistency"],
+                    help="progressive = ladder halving; consistency = one-phase "
+                         "consistency distillation, sampled at any NFE by sample-cm")
+    sp.add_argument("--ladder-steps", type=int, default=32,
+                    help="[consistency] teacher ladder segments N (the pairing grid, "
+                         "not the student's sampling steps)")
+    sp.add_argument("--distance", default="pseudo_huber", choices=["pseudo_huber", "l2"],
+                    help="[consistency] the distance (pseudo-Huber or L2)")
+    sp.set_defaults(fn=cmd_distill)
+
+    sp = sub.add_parser("sample-cm",
+                        help="sample a consistency student at 1..N forwards per image")
+    common(sp, ckpt_required=True)
+    sp.add_argument("--n", type=int, default=16)
+    sp.add_argument("--steps", type=int, default=2,
+                    help="network forwards per sample (1 = single-step)")
+    sp.add_argument("--out", default="samples_cm.png")
+    cfg_args(sp)
+    sp.set_defaults(fn=cmd_sample_cm)
 
     sp = sub.add_parser("img2img",
                         help="SDEdit: noise a real image to strength*T and denoise it back")

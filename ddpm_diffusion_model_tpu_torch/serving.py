@@ -2,13 +2,16 @@
 
 Counterpart of ``ddpm_diffusion_model_tpu/serving.py`` for DDIM and
 DPM-Solver++ sampling and image editing, unconditional or with a class and
-classifier-free guidance, and for super-resolution upsampling.  Stdlib-only
+classifier-free guidance, for one-forward sampling of a consistency
+student, and for super-resolution upsampling.  Stdlib-only
 (``ThreadingHTTPServer``); device work serializes behind one lock.
 
+    python -m ddpm_diffusion_model_tpu_torch.serving --ckpt ck/run_last [--device cuda]
     python -m ddpm_diffusion_model_tpu_torch.serving --ckpt x.pt [--device cuda]
     GET /healthz                 -> {"status": "ok", ...}
     GET /sample?n=4&steps=50&eta=0.0&seed=7&schedule=t_linear&format=png|npy
-                &sampler=ddim|dpmpp&class_id=K&guidance=W
+                &sampler=ddim|dpmpp|cm   (cm: consistency students, 1-NFE)
+                &class_id=K&guidance=W
     POST /edit   {"image": <b64 PNG>, "mode": "img2img"|"inpaint", ...}
                  -> edited grid (SDEdit / RePaint, sampling/editing.py)
     POST /upsample {"image": <b64 PNG>, "n": 4, "steps": 50, ...}
@@ -30,10 +33,15 @@ Dropped: the power-of-two row padding, which only bounded XLA's compile
 cache (eager PyTorch compiles nothing per shape), so every route draws n
 rows.  ``guidance`` is clamped to [0, 8] and snapped to 0.25 as the JAX
 service does it before it is tested; ``class_id`` or a guidance other than
-1 needs a class-conditional checkpoint (400 otherwise).  Not ported yet
-(400): ``sampler=cm`` and mesh serving.
-``.pt`` checkpoints are the reference format that the JAX CLI's
-``export-torch`` writes.
+1 needs a class-conditional checkpoint (400 otherwise).  A consistency
+student (``distill --mode consistency``; the checkpoint's ``extra`` says
+so) serves ``sampler=cm`` only, at steps=1 and guidance 1 (its guidance
+was baked in), and refuses ``/edit``; every other checkpoint refuses
+``sampler=cm``.  Not ported yet: mesh serving.
+``--ckpt`` takes a checkpoint directory of the port (``train``,
+``distill``; the experiment comes from its meta, the EMA weights unless
+``--no-ema``) or a reference-format ``.pt`` (the JAX CLI's
+``export-torch``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import base64
 import io
 import json
 import math
+import os
 import signal
 import sys
 import threading
@@ -61,14 +70,14 @@ from .sampling.inference import _ddim, ddim_from_init, dpmpp_from_init
 from .sampling.loops import to_unit_interval
 from .sampling.superres import upsample_infer_sample
 from .sampling.timesteps import build_ddim_schedule
+from .training.consistency import SIGMA_DATA, TIMESTEP_SCALING, cm_from_init
+from .training.restore import checkpoint_experiment, load_run
 from .utils.config import get_preset, preset_from_experiment
 from .utils.device import resolve_device
 from .utils.images import encode_png, load_image, make_grid
 from .utils.interop import load_reference_checkpoint
 
 __all__ = ["SamplerService", "make_server", "main"]
-
-_NOT_PORTED = "is not ported yet"
 
 
 class SamplerService:
@@ -90,7 +99,10 @@ class SamplerService:
     _LAT_WINDOW = 256
 
     def __init__(self, model: UNetDenoiser, sched: DiffusionSchedule,
-                 img_size: int, device: Union[str, torch.device] = "cuda"):
+                 img_size: int, device: Union[str, torch.device] = "cuda",
+                 consistency: bool = False, cm_guidance: Optional[float] = None,
+                 cm_sigma_data: Optional[float] = None,
+                 cm_timestep_scaling: Optional[float] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device,
                               memory_format=torch.channels_last).eval()
@@ -106,6 +118,14 @@ class SamplerService:
         # an SR upsampler (cond_channels > 0) serves /upsample only: its
         # forward needs x_cond, which /sample and /edit cannot build
         self.cond_channels = int(getattr(model.config, "cond_channels", 0) or 0)
+        # a consistency student serves sampler=cm only: its weights
+        # parameterize f through c_skip/c_out, not eps; its scalings are the
+        # ones it was distilled with (the defaults for a checkpoint without)
+        self.consistency = bool(consistency)
+        self.cm_guidance = cm_guidance  # the guidance baked in, if any
+        self.cm_sigma_data = float(SIGMA_DATA if cm_sigma_data is None else cm_sigma_data)
+        self.cm_timestep_scaling = float(TIMESTEP_SCALING if cm_timestep_scaling is None
+                                         else cm_timestep_scaling)
         self._latencies: list = []
         self._q_lock = threading.Lock()
         self._queues: dict = {}
@@ -114,10 +134,14 @@ class SamplerService:
     def from_checkpoint(cls, ckpt_path: str, preset: Optional[str] = None,
                         ema: bool = True, device: Union[str, torch.device] = "cuda"
                         ) -> "SamplerService":
-        """Serve a reference-format ``.pt``.  The architecture comes from
-        ``preset`` if given, else from the experiment ``export-torch``
-        stored in the file, else ``celeba64_low`` (the JAX service's
-        default)."""
+        """Serve a checkpoint directory of the port or a reference-format
+        ``.pt``, the EMA weights unless ``ema=False``.  The architecture
+        comes from ``preset`` if given, else from the experiment stored with
+        the checkpoint (a directory's meta, the ``.pt``'s ``export-torch``
+        extra), else ``celeba64_low`` (the JAX service's default).  A
+        directory's ``extra`` marks a consistency student."""
+        if os.path.isdir(ckpt_path):
+            return cls._from_directory(ckpt_path, preset, ema, device)
         sd, extra = load_reference_checkpoint(ckpt_path, ema=ema)
         if preset is not None:
             p = get_preset(preset)
@@ -130,6 +154,23 @@ class SamplerService:
         model.load_state_dict(sd, strict=True)
         return cls(model, make_schedule(p.diffusion, device=dev), p.img_size,
                    device=dev)
+
+    @classmethod
+    def _from_directory(cls, path: str, preset: Optional[str], ema: bool,
+                        device) -> "SamplerService":
+        """A checkpoint directory written by ``save_checkpoint``."""
+        exp = get_preset(preset) if preset is not None else (
+            checkpoint_experiment(path) or get_preset("celeba64_low"))
+        dev = resolve_device(device)
+        model, sched, state, meta = load_run(path, exp, dev)
+        if ema:
+            model.load_state_dict(state.ema_params, strict=True)
+        extra = (meta or {}).get("extra", {}) or {}
+        return cls(model, sched, exp.img_size, device=dev,
+                   consistency=extra.get("distill_mode") == "consistency",
+                   cm_guidance=extra.get("distill_guidance"),
+                   cm_sigma_data=extra.get("cm_sigma_data"),
+                   cm_timestep_scaling=extra.get("cm_timestep_scaling"))
 
     # ---------------------------------------------------------------- stats
 
@@ -219,26 +260,58 @@ class SamplerService:
         sampler adds in-loop noise) and its own label, so its images do not
         depend on what it was batched with.  On a conditional checkpoint a
         request without a class rides as the NULL token, on which guidance
-        collapses to the unconditional forward."""
+        collapses to the unconditional forward.
+
+        ``sampler="cm"`` serves a consistency student only (and only it):
+        one forward from the seed's x_T, steps=1, guidance 1 (the student's
+        was baked in); eta is forced to 0 and the schedule to ``t_linear``,
+        so every cm request coalesces.  A conditional student asked without
+        a class gets a ``warning`` in ``used``: its NULL class is
+        untrained."""
         self._refuse_upsampler()
+        if sampler not in ("ddim", "dpmpp", "cm"):
+            raise ValueError(f"sampler must be 'ddim'|'dpmpp'|'cm', got {sampler!r}")
+        if self.consistency != (sampler == "cm"):
+            raise ValueError(
+                "sampler=cm serves consistency-distilled checkpoints only"
+                if sampler == "cm" else
+                "this is a consistency student checkpoint — its weights "
+                "parameterize f_theta, not eps; use sampler=cm (1-NFE)")
         if sampler == "cm":
-            raise ValueError(f"sampler={sampler} {_NOT_PORTED}")
-        if sampler not in ("ddim", "dpmpp"):
-            raise ValueError(f"sampler must be 'ddim' or 'dpmpp', got {sampler!r}")
+            # multistep CM re-noises from one generator, which would
+            # entangle coalesced requests' seeds: the CLI's sample-cm serves
+            # steps > 1
+            if int(steps) != 1:
+                raise ValueError(
+                    "sampler=cm serves 1-NFE only (steps=1): multistep CM "
+                    "refinement is stochastic per batch — use the CLI "
+                    "sample-cm for steps > 1")
+            if guidance != 1.0:
+                baked = (f" (w={self.cm_guidance} baked in at distillation)"
+                         if self.cm_guidance is not None else "")
+                raise ValueError("sampler=cm: guidance is fixed at distillation time"
+                                 + baked + "; pass class_id only")
         if schedule_kind not in self.SCHEDULE_KINDS:
             raise ValueError(f"schedule must be one of {self.SCHEDULE_KINDS}, "
                              f"got {schedule_kind!r}")
         guidance = self._snap_guidance(class_id, guidance)
         if not math.isfinite(eta):
             raise ValueError(f"eta must be finite, got {eta!r}")
-        if sampler == "dpmpp":
+        if sampler in ("dpmpp", "cm"):
             eta = 0.0  # deterministic; always coalesced
+        if sampler == "cm":
+            schedule_kind = "t_linear"  # cm runs no ladder: one queue for all
         n = max(1, min(int(n), self.MAX_N))
         steps = self._snap_steps(steps)
         used = {"n": n, "steps": int(steps), "eta": float(eta),
                 "seed": int(seed), "schedule": schedule_kind, "sampler": sampler,
                 "guidance": guidance}
         self._used_class(used, class_id, guidance)
+        if sampler == "cm" and self.num_classes and class_id is None:
+            used["warning"] = (
+                "conditional consistency student, no class_id: output uses "
+                "the untrained NULL class and may be degraded — pass "
+                "class_id")
         # per-row label: requests without a class ride as the NULL token
         label = (None if not self.num_classes
                  else (self.num_classes if class_id is None else int(class_id)))
@@ -267,6 +340,11 @@ class SamplerService:
         variations, each row with its own noise.  Thread-safe; device work
         serializes."""
         self._refuse_upsampler()
+        if self.consistency:
+            raise ValueError(
+                "/edit rides the eps-prediction boundary, which a "
+                "consistency student's weights no longer satisfy — edit "
+                "with the base (pre-distillation) checkpoint")
         if mode not in ("img2img", "inpaint"):
             raise ValueError(f"mode must be 'img2img'|'inpaint', got {mode!r}")
         if not math.isfinite(strength) or not math.isfinite(eta):
@@ -423,20 +501,25 @@ class SamplerService:
 
     def _run_eta0_batch(self, batch, steps, schedule_kind, sampler="ddim",
                         guidance=1.0):
-        """ONE deterministic run (DDIM eta=0 or DPM-Solver++(2M)) over the
-        concatenated per-request init noise and labels, split back per
-        request."""
-        ts = build_ddim_schedule(
-            schedule_kind, steps, self.sched.T,
-            alphas_cumprod=self.sched.alphas_cumprod.cpu().numpy())
+        """ONE deterministic run (DDIM eta=0, DPM-Solver++(2M) or the
+        consistency student's one forward) over the concatenated
+        per-request init noise and labels, split back per request."""
         y = None
         if any(r["label"] is not None for r in batch):
             y = torch.from_numpy(np.concatenate(
                 [np.full(r["n"], r["label"], np.int64) for r in batch])).to(self.device)
         with self._lock:
             x_init = torch.cat([self._init_noise(r["n"], r["seed"]) for r in batch])
-            kernel = dpmpp_from_init if sampler == "dpmpp" else ddim_from_init
-            x = kernel(self.model, self.sched, x_init, ts, y=y, guidance=guidance)
+            if sampler == "cm":
+                x = cm_from_init(self.model, None, self.sched, x_init, y=y,
+                                 sigma_data=self.cm_sigma_data,
+                                 timestep_scaling=self.cm_timestep_scaling)
+            else:
+                ts = build_ddim_schedule(
+                    schedule_kind, steps, self.sched.T,
+                    alphas_cumprod=self.sched.alphas_cumprod.cpu().numpy())
+                kernel = dpmpp_from_init if sampler == "dpmpp" else ddim_from_init
+                x = kernel(self.model, self.sched, x_init, ts, y=y, guidance=guidance)
             x01 = to_unit_interval(x).float().cpu().numpy()
         with self._stats_lock:
             self._stats["coalesced_batches"] += 1
@@ -475,8 +558,13 @@ def make_server(service: SamplerService, host: str = "127.0.0.1",
                     "step_choices": list(service.STEP_CHOICES),
                     "max_n": service.MAX_N,
                     "num_classes": service.num_classes,
-                    "edit_modes": ["img2img", "inpaint"],
-                    "consistency": False,
+                    "edit_modes": [] if service.consistency else ["img2img", "inpaint"],
+                    # a consistency student: sampler=cm is its only route
+                    "consistency": service.consistency,
+                    **({"consistency_caveat":
+                        "conditional student; requests without class_id "
+                        "use the untrained NULL class"}
+                       if service.consistency and service.num_classes else {}),
                     "upsampler": bool(service.cond_channels),
                     "device": str(service.device),
                 })
@@ -490,12 +578,13 @@ def make_server(service: SamplerService, host: str = "127.0.0.1",
             q = {k: v[0] for k, v in parse_qs(url.query).items()}
             try:
                 n = max(1, min(int(q.get("n", 4)), service.MAX_N))
-                steps = max(1, min(int(q.get("steps", 50)), 1000))
+                steps = max(1, min(int(q.get("steps", 1 if service.consistency else 50)),
+                                   1000))
                 eta = float(q.get("eta", 0.0))
                 seed = int(q.get("seed", 0))
                 fmt = q.get("format", "png")
                 kind = q.get("schedule", "t_linear")
-                sampler = q.get("sampler", "ddim")
+                sampler = q.get("sampler", "cm" if service.consistency else "ddim")
                 class_id = int(q["class_id"]) if "class_id" in q else None
                 guidance = float(q.get("guidance", 1.0))
                 x, used = service.sample(n=n, steps=steps, eta=eta, seed=seed,
@@ -599,7 +688,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True,
-                    help="reference-format .pt (ddpm-tpu export-torch)")
+                    help="a checkpoint directory of the port (cli train, distill) or a "
+                         "reference-format .pt (the JAX CLI's export-torch)")
     ap.add_argument("--preset", help="architecture preset, overriding the "
                     "experiment stored in the checkpoint")
     ap.add_argument("--device", default="cuda")

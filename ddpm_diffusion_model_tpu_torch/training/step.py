@@ -135,6 +135,31 @@ def _as_labels(y, n: int, device) -> torch.Tensor:
     return y.to(device=device, dtype=torch.long, non_blocking=True)
 
 
+def _batch_on(batch, conditional: bool, device):
+    """(images float32, labels int64 or None) of ``batch`` on ``device``."""
+    x, y = _split_batch(batch, conditional)
+    x = torch.as_tensor(x, dtype=torch.float32).to(device, non_blocking=True)
+    if conditional:
+        y = _as_labels(y, x.shape[0], device)
+    return x, y
+
+
+def _finish_update(state: TrainState, tx: AdamWClip, params, accum: int = 1) -> torch.Tensor:
+    """The tail of every update, in place: the grads of ``params`` (divided
+    by ``accum``), the optimizer step, the EMA lerp, the grads cleared and
+    the step counted.  Returns the pre-clip global grad norm."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    if accum > 1:
+        torch._foreach_div_(grads, float(accum))
+    grad_norm = global_norm(grads)  # pre-clip
+    tx.step(params, grads, state.opt_state)
+    ema_update(state.ema_params, dict(state.model.named_parameters()), state.ema_decay)
+    for p in params:
+        p.grad = None
+    state.step += 1
+    return grad_norm
+
+
 def _drop_labels(y: torch.Tensor, drop: Optional[torch.Tensor], cond_dropout: float,
                  num_classes: int) -> torch.Tensor:
     """Labels with the ``drop`` rows replaced by the NULL token.  Without a
@@ -255,11 +280,8 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, tx: AdamWClip,
                    ) -> Tuple[TrainState, Metrics]:
         params = state.params()
         device = params[0].device
-        x, y = _split_batch(batch, conditional)
-        x = torch.as_tensor(x, dtype=torch.float32).to(device, non_blocking=True)
+        x, y = _batch_on(batch, conditional, device)
         B = x.shape[0]
-        if conditional:
-            y = _as_labels(y, B, device)
         if B % accum:
             raise ValueError(f"batch {B} is not divisible by grad_accum_steps {accum}")
         if draws is None:
@@ -275,19 +297,9 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, tx: AdamWClip,
             loss = loss_fn((x[sl], y[sl]) if conditional else x[sl], _micro(draws, sl))
             loss.backward()
             loss_sum += loss.detach()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        if accum > 1:
-            torch._foreach_div_(grads, float(accum))
-        grad_norm = global_norm(grads)  # pre-clip
-        tx.step(params, grads, state.opt_state)
-        ema_update(state.ema_params, dict(state.model.named_parameters()),
-                   state.ema_decay)
-        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
-                   "lr": lr_schedule(state.step)}
-        state.step += 1
-        for p in params:
-            p.grad = None
-        return state, metrics
+        lr = lr_schedule(state.step)
+        grad_norm = _finish_update(state, tx, params, accum)
+        return state, {"loss": loss_sum / accum, "grad_norm": grad_norm, "lr": lr}
 
     return train_step
 

@@ -4,7 +4,9 @@ refusals, a small U-Net forward and train step on the kernels against the
 plain versions with the launches per step, the decoder-only forward and
 a 4-step DPM-Solver++ run on the kernels against the plain versions, a
 guided (CFG) forward and a class-conditional train step on the kernels
-against the plain versions, a super-resolution train step and the
+against the plain versions, a guided progressive and a consistency
+distillation update on the kernels against the plain versions, a
+super-resolution train step and the
 upsampler's DDIM on the kernels against the plain versions, the service on
 the card,
 ``remat`` on the kernels, a checkpoint round trip of CUDA state, the
@@ -550,6 +552,62 @@ def test_conditional_train_step_on_kernels_matches_plain(card):
     assert float((out[0][2] - out[1][2]).norm()) <= 1e-2 * float(move.norm())
     table_move = out[1][4] - base["class_emb.weight"]
     assert float((out[0][4] - out[1][4]).norm()) <= 1e-2 * float(table_move.norm())
+
+
+@pytest.mark.parametrize("kind", ["progressive", "consistency"])
+def test_guided_distill_update_on_kernels_matches_plain(card, kind):
+    """One fp32 distillation update of a conditional student with guidance
+    3 baked in, from the same weights, teacher and injected draws: kernels
+    vs plain differ only in summation order.  Three forwards an update (a
+    progressive update's two guided teacher half-steps, one doubled forward
+    each, or a consistency update's teacher step and EMA target; then the
+    student's), the student's backward once."""
+    from ddpm_diffusion_model_tpu_torch.ops import DiffusionConfig, make_schedule
+    from ddpm_diffusion_model_tpu_torch.training import (DistillDraws, TrainConfig,
+                                                         consistency_ladder,
+                                                         distill_ladder,
+                                                         init_train_state,
+                                                         make_consistency_step,
+                                                         make_distill_step)
+
+    cfg_m = UNetConfig(**SMALL, num_classes=3, dropout=0.1)
+    torch.manual_seed(8)
+    base = UNetDenoiser(cfg_m, dtype=torch.float32, device=card).state_dict()
+    torch.manual_seed(9)
+    teacher = dict(UNetDenoiser(cfg_m, dtype=torch.float32, device=card).named_parameters())
+    teacher = {k: v.detach() for k, v in teacher.items()}
+    sched = make_schedule(DiffusionConfig(T=100, img_size=10), device=card)
+    gen = torch.Generator(card).manual_seed(10)
+    x = torch.rand(4, 10, 10, 3, generator=gen, device=card) * 2 - 1
+    y = torch.tensor([0, 1, 2, 0], device=card)
+    draws = DistillDraws(torch.tensor([0, 1, 2, 3], device=card),
+                         torch.randn(x.shape, generator=gen, device=card))
+    cfg = TrainConfig(base_lr=1e-3, warmup_steps=0, ema_decay=0.9)
+    make, ladder = ((make_distill_step, distill_ladder(100, 4)) if kind == "progressive"
+                    else (make_consistency_step, consistency_ladder(100, 4)))
+    out = []
+    for ctx in (contextlib.nullcontext, _plain_path):
+        model = UNetDenoiser(cfg_m, dtype=torch.float32, device=card)
+        model.load_state_dict(base)
+        model = model.to(memory_format=torch.channels_last)
+        state, tx = init_train_state(model, cfg)
+        counts = (tfn.launches, tfn.bwd_launches, tfa.launches, tfa.bwd_dq_launches,
+                  tfa.bwd_dkv_launches)
+        with ctx():
+            step = make(model, sched, ladder, tx, cfg, guidance=3.0)
+            state, m = step(state, teacher, (x, y), draws)
+        torch.cuda.synchronize()
+        now = (tfn.launches, tfn.bwd_launches, tfa.launches, tfa.bwd_dq_launches,
+               tfa.bwd_dkv_launches)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    torch.cat([p.detach().flatten() for p in model.parameters()]),
+                    tuple(a - b for a, b in zip(now, counts))))
+    assert out[0][3] == (3 * 23, 23, 3, 1, 1) and out[1][3] == (0,) * 5
+    assert np.isfinite(out[0][0]) and out[0][0] > 0
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-5)
+    assert out[0][1] == pytest.approx(out[1][1], rel=1e-4)
+    move = out[1][2] - torch.cat([p.flatten() for p in base.values()]).to(card)
+    assert float((out[0][2] - out[1][2]).norm()) <= 1e-2 * float(move.norm())
 
 
 def test_sr_train_step_on_kernels_matches_plain(card):

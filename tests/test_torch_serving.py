@@ -110,6 +110,9 @@ def test_eta_positive_is_deterministic_per_seed(served):
 # a class or a guidance other than 1 on this unconditional checkpoint: the
 # JAX service's 400 (the ids are the cases' since they answered "not ported")
 NEEDS_CLASSES = "need a class-conditional checkpoint"
+# sampler=cm on a checkpoint that is no consistency student: the JAX
+# service's 400 (the ids are the cases' since they answered "not ported")
+CM_ONLY = "serves consistency-distilled checkpoints only"
 
 
 @pytest.mark.parametrize("query,needle", [
@@ -117,7 +120,7 @@ NEEDS_CLASSES = "need a class-conditional checkpoint"
     ("n=abc", "invalid literal"),
     pytest.param("sampler=dpmpp&class_id=3", NEEDS_CLASSES,
                  id="sampler=dpmpp&class_id=3-not ported yet"),
-    ("sampler=cm", "not ported yet"),
+    pytest.param("sampler=cm", CM_ONLY, id="sampler=cm-not ported yet"),
     ("sampler=euler", "sampler must be"),
     pytest.param("class_id=3", NEEDS_CLASSES, id="class_id=3-not ported yet"),
     pytest.param("guidance=2.0", NEEDS_CLASSES, id="guidance=2.0-not ported yet"),
@@ -427,7 +430,7 @@ def test_conditional_healthz_and_used(served_cond):
     ("class_id=3", "out of range [0, 3)"),
     ("class_id=-1", "out of range"),
     ("guidance=nan&class_id=0", "guidance must be finite"),
-    ("sampler=cm&class_id=0", "not ported yet"),
+    pytest.param("sampler=cm&class_id=0", CM_ONLY, id="sampler=cm&class_id=0-not ported yet"),
 ])
 def test_conditional_bad_requests_are_400(served_cond, query, needle):
     _svc, base = served_cond
