@@ -1,10 +1,11 @@
 """Training observability: step timing, device memory, the log tables'
-rules and times, and a profiler trace of a block.
+rules and times, a profiler trace of a block and the update's spans.
 
 Counterpart of ``ddpm_diffusion_model_tpu/training/diagnostics.py``.
 PyTorch returns before the card has finished, so the timer synchronizes
 before it reads the clock.  :func:`profiler_trace` records a
-``torch.profiler`` trace where JAX records a ``jax.profiler`` one.
+``torch.profiler`` trace where JAX records a ``jax.profiler`` one;
+:func:`span` names the phases of an update in it.
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ import time
 from typing import Iterator, Optional, Tuple, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["StepTimer", "device_mem_mb", "fmt_hms", "rule", "profiler_trace"]
+__all__ = ["StepTimer", "device_mem_mb", "fmt_hms", "rule", "profiler_trace", "span"]
 
 _trace_ids = itertools.count()
+_NO_SPAN = contextlib.nullcontext()
 
 
 def fmt_hms(sec: float) -> str:
@@ -86,3 +89,16 @@ def profiler_trace(logdir: Optional[str]) -> Iterator[None]:
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             logdir, f"trace-{os.getpid()}-{next(_trace_ids)}.json"))
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a ``torch.profiler``
+    runs (it lands in the profiler's trace beside the kernels the range
+    launches), else one shared no-op context: with the profiler off a span
+    costs one attribute read and no clock read.  The flag read is the one
+    the profiler sets on start and clears on stop in every mode; the C-level
+    ``_profiler_enabled()`` reads the calling thread's state, which a
+    profiler of all threads (``profile_all_threads``) leaves unset."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -59,7 +59,7 @@ from ..parallel import any_rank, place_state, rank, world_size
 from .checkpoint import (apply_resume_overrides, find_latest_checkpoint,
                          load_checkpoint, read_meta, save_checkpoint,
                          wait_for_checkpoints)
-from .diagnostics import StepTimer, device_mem_mb, fmt_hms, rule
+from .diagnostics import StepTimer, device_mem_mb, fmt_hms, rule, span
 from .ema import ema_health
 from .preemption import PreemptionFlag, catch_preemption
 from .state import (TrainConfig, TrainState, init_train_state, make_lr_schedule,
@@ -128,7 +128,8 @@ def train_one_epoch(
     n_batches, n_images = 0, 0
     loss_acc = None
     step0 = int(state.step)
-    timer = StepTimer()
+    timer = StepTimer()  # wall since the last log line, over its updates
+    logged_at = 0
     baseline_pending = bool(log_every and step0 == 0 and epoch_header_printed is not None
                             and not epoch_header_printed[0])
     title_printed = False
@@ -144,7 +145,14 @@ def train_one_epoch(
                     y = None if y is None else batch_sharding.local(y)
                 yield (x, y) if labeled else x
 
-    for x, y in device_prefetch(host_batches(), size=2, device=device):
+    batches = device_prefetch(host_batches(), size=2, device=device)
+    # no pull after the last of max_batches: each train.data_wait feeds a step
+    while max_batches is None or n_batches < max_batches - skip_batches:
+        with span("train.data_wait"):
+            item = next(batches, None)
+        if item is None:
+            break
+        x, y = item
         if any_rank(bool(stop_flag)):  # preemption: stop at a batch boundary
             break
         if baseline_pending:
@@ -156,15 +164,15 @@ def train_one_epoch(
             base = float(torch.randn(shape, generator=gen, device=device).square().mean())
             log("┆ In-epoch statistics")
             log(f"┆   (baseline)  eps-MSE ~ {base:.3f}  (expected ~1.0)")
-        timer.reset()
-        state, metrics = train_step(state, (x, y) if labeled else x)
+        with span("train.step"):
+            state, metrics = train_step(state, (x, y) if labeled else x)
         loss_acc = metrics["loss"] if loss_acc is None else loss_acc + metrics["loss"]
         n_batches += 1
         n_images += x.shape[0] * shards
         step_now = step0 + n_batches
 
         if log_every and step_now % log_every == 0:
-            dt_ms = timer.mark(metrics["loss"])
+            dt_ms = timer.mark(metrics["loss"]) / (n_batches - logged_at)
             loss_val = float(metrics["loss"])
             if epoch_header_printed is not None and not epoch_header_printed[0]:
                 if not title_printed:
@@ -188,6 +196,8 @@ def train_one_epoch(
             log("┆   {:8d} | {:9.2e} | {:8.4f} | {:8.1f} | {:>10}{}{}".format(
                 step_now, float(metrics["lr"]), loss_val, dt_ms, gn_str, mem_msg,
                 probe_msg))
+            logged_at = n_batches
+            timer.reset()
 
     avg_loss = float(loss_acc) / n_batches if n_batches else 0.0
     return state, avg_loss, n_batches, n_images

@@ -34,6 +34,7 @@ from torch import nn
 from ..ops.diffusion import loss_simple, sample_timesteps
 from ..ops.schedules import DiffusionSchedule
 from ..ops.superres import aug_cond, build_cond
+from .diagnostics import span
 from .ema import ema_update
 from .state import AdamWClip, TrainConfig, TrainState, global_norm, make_lr_schedule
 
@@ -313,7 +314,10 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, tx: AdamWClip,
     batch, and the step equals the single-process step on the rank-major
     global batch.  ``metrics``: ``loss`` (the global batch's) and the
     pre-clip ``grad_norm`` as 0-d device tensors (no host sync), ``lr`` the
-    rate of this update as a float."""
+    rate of this update as a float.  Under a profiler the step's phases are
+    the spans ``train.forward`` (the draws and each micro-batch's loss),
+    ``train.backward`` (each micro-batch's backward) and ``train.update``
+    (the rate, clip, optimizer and EMA)."""
     sr_factor = _check_superres(model.config, cfg.superres_factor)
     cond_aug = float(cfg.cond_aug) if sr_factor else 0.0
     loss_fn = make_loss_fn(model, sched, resolve_weight_fn(cfg.loss_weighting),
@@ -331,9 +335,6 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, tx: AdamWClip,
         B = x.shape[0]
         if B % accum:
             raise ValueError(f"batch {B} is not divisible by grad_accum_steps {accum}")
-        if draws is None:
-            draws = draw_placed(state, x.shape, sched.T, device,
-                                cfg.cond_dropout if conditional else None, cond_aug)
         model.train()
         for p in params:
             p.grad = None
@@ -341,11 +342,17 @@ def make_train_step(model: nn.Module, sched: DiffusionSchedule, tx: AdamWClip,
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
-            loss = loss_fn((x[sl], y[sl]) if conditional else x[sl], _micro(draws, sl))
-            loss.backward()
-            loss_sum += loss.detach()
-        lr = lr_schedule(state.step)
-        grad_norm, (loss,) = _finish_update(state, tx, params, accum, (loss_sum,))
+            with span("train.forward"):
+                if draws is None:  # the first micro-batch's forward draws
+                    draws = draw_placed(state, x.shape, sched.T, device,
+                                        cfg.cond_dropout if conditional else None, cond_aug)
+                loss = loss_fn((x[sl], y[sl]) if conditional else x[sl], _micro(draws, sl))
+            with span("train.backward"):
+                loss.backward()
+                loss_sum += loss.detach()
+        with span("train.update"):
+            lr = lr_schedule(state.step)
+            grad_norm, (loss,) = _finish_update(state, tx, params, accum, (loss_sum,))
         return state, {"loss": loss, "grad_norm": grad_norm, "lr": lr}
 
     return train_step

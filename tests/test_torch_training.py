@@ -7,7 +7,9 @@ schedule, the whole step against the JAX composition of its pieces, grad
 accumulation, the loss weightings, ``train_one_epoch``, eval and probes,
 and the options that are not ported yet."""
 
+import collections
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -411,6 +413,114 @@ def test_train_one_epoch_on_blob_faces_prints_the_table(capsys):
     assert "t=10:" in out and "2.50e-04" in out  # lr of the first update: 1e-3 / 4
     for p in model.parameters():
         assert p.dtype == torch.float32 and p.grad is None
+
+
+PHASES = ("train.forward", "train.backward", "train.update")
+
+
+@functools.lru_cache(maxsize=None)
+def _two_updates(accum: int, profiled: bool):
+    """Two updates of the tiny bf16 U-Net (dropout on) through
+    ``train_one_epoch`` over a loader of three batches; returns the losses,
+    the parameters and, under a CPU profiler, the (name, thread, start,
+    end) of every range the port opened."""
+    torch.manual_seed(0)
+    model = UNetDenoiser(UNetConfig(**dict(SMALL, dropout=0.1)), dtype=torch.bfloat16,
+                         device="cpu").to(memory_format=torch.channels_last)
+    cfg = TrainConfig(base_lr=1e-3, warmup_steps=4, grad_accum_steps=accum)
+    state, tx = init_train_state(model, cfg, seed=1)
+    step = make_train_step(model, _scheds()[1], tx, cfg)
+    losses = []
+
+    def recorded(state, batch):
+        state, m = step(state, batch)
+        losses.append(m["loss"].clone())
+        return state, m
+
+    data = blob_faces_array(12, img_size=16, seed=0)
+    loader = [data[i:i + 4] for i in range(0, 12, 4)]
+    ranges = []
+    if profiled:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            train_one_epoch(recorded, state, loader, max_batches=2)
+        ranges = [(e.name, e.thread, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.name.startswith("train.")]
+    else:
+        train_one_epoch(recorded, state, loader, max_batches=2)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return torch.stack(losses), params, ranges
+
+
+@pytest.mark.parametrize("all_threads", [False, True])
+@pytest.mark.parametrize("name", ("train.data_wait", "train.step") + PHASES)
+def test_a_span_is_one_shared_null_context_with_the_profiler_off(name, all_threads):
+    """Off: the same no-op object every call.  On, also under a profiler
+    of every thread (as the benchmark's hosted pass runs): one range."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    from ddpm_diffusion_model_tpu_torch.training.diagnostics import span
+
+    assert span(name) is span("other")
+    with span(name) as inside:
+        assert inside is None
+    extra = ({"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+             if all_threads else {})
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                **extra) as prof:
+        with span(name):
+            pass
+    assert span(name) is span("other")
+    assert [e.name for e in prof.events()] == [name]
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_each_update_opens_its_spans(accum):
+    """data_wait, step and update once an update, forward and backward once
+    a micro-batch; each phase inside a step, on the step's thread."""
+    ranges = _two_updates(accum, True)[2]
+    count = collections.Counter(name for name, *_ in ranges)
+    assert count == {"train.data_wait": 2, "train.step": 2, "train.update": 2,
+                     "train.forward": 2 * accum, "train.backward": 2 * accum}
+    steps = [r for r in ranges if r[0] == "train.step"]
+    for name, thread, s, t in ranges:
+        if name in PHASES:
+            assert any(th == thread and a <= s <= t <= b for _, th, a, b in steps), name
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_the_spans_leave_the_update_bit_equal(accum):
+    off, on = _two_updates(accum, False), _two_updates(accum, True)
+    assert torch.equal(off[0], on[0]) and off[0].shape == (2,)
+    for n, p in off[1].items():
+        assert torch.equal(p, on[1][n]), n
+
+
+def test_log_line_dt_is_the_mean_wall_per_update_since_the_last(monkeypatch, capsys):
+    """dt(ms) is the timer's mark over the updates since the previous log
+    line, the timer restarted at each line."""
+    from ddpm_diffusion_model_tpu_torch.training import loop
+
+    class Timer:
+        resets = 0
+
+        def reset(self):
+            Timer.resets += 1
+
+        def mark(self, result=None):
+            return 90.0
+
+    monkeypatch.setattr(loop, "StepTimer", Timer)
+    model = UNetDenoiser(UNetConfig(**SMALL), dtype=torch.float32, device="cpu")
+    cfg = TrainConfig(base_lr=1e-3)
+    state, tx = init_train_state(model, cfg, seed=1)
+    step = make_train_step(model, _scheds()[1], tx, cfg)
+    data = blob_faces_array(12, img_size=16, seed=0)
+    train_one_epoch(step, state, [data[i:i + 2] for i in range(0, 12, 2)], log_every=3,
+                    epoch_header_printed=[True])
+    rows = [line.split("|") for line in capsys.readouterr().out.splitlines()
+            if line.startswith("┆") and "|" in line]
+    assert [(int(r[0].strip("┆ ")), r[3].strip()) for r in rows] == [(3, "30.0"), (6, "30.0")]
+    assert Timer.resets == 2
 
 
 def test_blob_faces_equal_the_jax_package_data():
