@@ -69,7 +69,8 @@ def run_cell(spec: Spec, workload: str, seed: int, seconds: float, trace: bool, 
     clock.parts["start"] = time.perf_counter() - t0  # interpreter, torch, the card's driver
     rc = RunContext(config=config, mix=mix, seed=seed, seconds=seconds,
                     trace=trace, spans=span_names, chips=int(cell["chips"]),
-                    clock=clock, device=torch.device(device or "cuda"), mode=mode)
+                    clock=clock, device=torch.device(device or "cuda"), mode=mode,
+                    reference=spec.reference(config["reference"]))
     out = spec.driver(mix["kind"]).run(rc)
     values = {}
     for m in layers:
@@ -82,13 +83,15 @@ def run_cell(spec: Spec, workload: str, seed: int, seconds: float, trace: bool, 
 
 class _Ctx:
     """What a per-layer reader sees: the configuration, the mix, the
-    traced slice and the window's counts."""
+    work arithmetic with the configuration's own counts, the traced slice
+    and the window's counts."""
 
     def __init__(self, rc: RunContext, out):
         from . import work
 
         self.model = rc.config["experiment"]["model"]
-        self.mix, self.chips, self.work = rc.mix, rc.chips, work
+        self.mix, self.chips = rc.mix, rc.chips
+        self.work = work.with_counts(rc.reference)
         self.trace, self.layer = out.trace, out.layer
 
 

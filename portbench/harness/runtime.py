@@ -9,7 +9,7 @@ import dataclasses
 import gc
 import sys
 import time
-from typing import Callable, Dict, List, Set
+from typing import Dict, List, Set
 
 import torch
 
@@ -58,6 +58,7 @@ class RunContext:
     clock: SetupClock
     device: torch.device
     mode: str = "program"  # "program", "control" (fp8 reference) or "fault:<name>"
+    reference: object = None  # the configuration's reference module (Spec.reference)
 
 
 @dataclasses.dataclass
@@ -121,15 +122,12 @@ def build_program(rc: RunContext):
     return exp, model, sched
 
 
-def reference_model(config: dict, device, precision) -> torch.nn.Module:
-    """The configuration's plain float32 model, with the weights of the
-    run's seed set by the caller (:func:`load_reference_weights`)."""
-    from ..reference.dit import DiTRef
-    from ..reference.unet import UNetRef
-
-    cls: Callable = {"unet": UNetRef, "dit": DiTRef}[config["reference"]]
-    with torch.device(device):
-        return cls(config["experiment"]["model"], precision)
+def reference_model(rc: RunContext, precision) -> torch.nn.Module:
+    """The configuration's plain float32 model, its reference module's
+    ``MODEL``, with the weights of the run's seed set by the caller
+    (:func:`load_reference_weights`)."""
+    with torch.device(rc.device):
+        return rc.reference.MODEL(rc.config["experiment"]["model"], precision)
 
 
 @torch.no_grad()

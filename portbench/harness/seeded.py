@@ -1,5 +1,5 @@
-"""Everything a run makes from ``--seed``: the sub-seeds, the weights and
-the image corpus.
+"""Everything a run makes from ``--seed``: the sub-seeds, the weights, the
+image corpus and its class labels.
 
 The weights are the benchmark's, not an initializer of the program's: one
 standard-normal draw over every parameter element from a generator on the
@@ -17,7 +17,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["sub_seeds", "make_weights", "make_corpus"]
+__all__ = ["sub_seeds", "make_weights", "make_corpus", "make_labels"]
 
 _STREAMS = ("weights", "corpus", "step", "loader", "traffic", "sample")
 
@@ -61,6 +61,15 @@ def make_corpus(n: int, hw: int, channels: int, seed: int, device) -> np.ndarray
     host = codes.cpu().numpy()
     del codes
     return host
+
+
+def make_labels(n: int, num_classes: int, seed: int, device) -> np.ndarray:
+    """``n`` int32 class labels, uniform in [0, num_classes), drawn on the
+    card in one call and brought to the host beside the corpus."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    labels = torch.randint(0, num_classes, (n,), generator=gen, device=device,
+                           dtype=torch.int32)
+    return labels.cpu().numpy()
 
 
 def param_specs(model: torch.nn.Module) -> List[Tuple[str, Tuple[int, ...]]]:

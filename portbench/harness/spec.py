@@ -10,8 +10,10 @@ begins its own (``mfu.train`` reads ``mfu.train_256`` too): its ``SPANS``
 value, or None where the slice holds nothing to read).  An end-to-end
 metric is the driver's value of its name, or of the name it begins with
 (``train_images_per_s`` for ``train_images_per_s_256``).  A cell's limits for ``correct``
-are ``limits/<workload>.json``.  Adding any of them takes new files and
-entries only.
+are ``limits/<workload>.json``.  A configuration's ``reference`` names the
+module ``reference/<reference>.py``: its plain model ``MODEL`` and, where
+it defines them, its own work counts (``harness/work.py``).  Adding any of
+them takes new files and entries only.
 """
 
 from __future__ import annotations
@@ -91,6 +93,22 @@ class Spec:
         spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
+        return mod
+
+    def reference(self, name: str):
+        """The module ``reference/<name>.py``, loaded from its file as a
+        module of ``portbench.reference`` (so it may import its siblings
+        relatively): ``MODEL``, built as ``MODEL(model_cfg, precision)``,
+        and the counts ``fwd_flops``, ``attn_calls`` and ``gn_calls`` where
+        it defines them."""
+        path = self.dir / "reference" / f"{name}.py"
+        if not name.isidentifier() or not path.is_file():
+            raise FileNotFoundError(f"no reference module {path} for reference {name!r}")
+        spec = importlib.util.spec_from_file_location(f"portbench.reference.{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if not hasattr(mod, "MODEL"):
+            raise AttributeError(f"the reference module {path} defines no MODEL")
         return mod
 
     def driver(self, kind: str):

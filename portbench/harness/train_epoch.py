@@ -6,7 +6,11 @@ call for ``warmup_updates`` updates (the first ``checked_updates`` of them
 are the ones the reference follows), then the window drives the same state
 through ``train_one_epoch`` until the clock runs out (a stop flag the loop
 reads before each step).  ``train_images_per_s`` is every image the
-updates consumed over the window's time, ending at a synchronize.
+updates consumed over the window's time, ending at a synchronize.  A
+class-conditional configuration (``model.num_classes > 0``) gives every
+corpus image a label drawn uniformly from its classes with the run's
+``traffic`` sub-seed, fed through the loader to the step and to the
+reference alike.
 
 Mix parameters: ``batch`` (images an update), ``corpus_images`` (the
 dataset's count of uint8 images, drawn on the card from the seed and
@@ -19,6 +23,7 @@ reference's batch; 0 for the whole batch).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time
 from typing import Dict, List
@@ -85,10 +90,13 @@ def _planted(mode: str):
     """Break the timed path while the block runs, for a fault reading:
     ``fault:frozen`` (the update leaves the state as it was),
     ``fault:half_batch`` (the loss is the mean over the first half of the
-    rows), ``fault:ema_decay0`` (the EMA update copies the parameters)."""
+    rows, with their labels), ``fault:ema_decay0`` (the EMA update copies
+    the parameters), ``fault:null_labels`` (the step sees every label as
+    the NULL token)."""
     from ddpm_diffusion_model_tpu_torch.training import step as step_mod
 
-    saved = (step_mod._finish_update, step_mod.loss_simple, step_mod.ema_update)
+    saved = (step_mod._finish_update, step_mod.loss_simple, step_mod.ema_update,
+             step_mod._drop_labels)
     if mode == "fault:frozen":
         def finish(state, tx, params, accum=1, sums=()):
             for p in params:
@@ -97,14 +105,17 @@ def _planted(mode: str):
 
         step_mod._finish_update = finish
     elif mode == "fault:half_batch":
-        orig = step_mod.loss_simple
+        orig, orig_drop = step_mod.loss_simple, step_mod._drop_labels
 
         def half(sched, eps_fn, x0, t, noise, weight=None):
             h = x0.shape[0] // 2
             return orig(sched, eps_fn, x0[:h], t[:h], noise[:h],
                         None if weight is None else weight[:h])
 
-        step_mod.loss_simple = half
+        def half_labels(y, drop, cond_dropout, num_classes):
+            return orig_drop(y, drop, cond_dropout, num_classes)[:y.shape[0] // 2]
+
+        step_mod.loss_simple, step_mod._drop_labels = half, half_labels
     elif mode == "fault:ema_decay0":
         orig_ema = step_mod.ema_update
 
@@ -112,12 +123,18 @@ def _planted(mode: str):
             return orig_ema(ema_params, params, 0.0)
 
         step_mod.ema_update = copy
+    elif mode == "fault:null_labels":
+        def null(y, drop, cond_dropout, num_classes):
+            return torch.full_like(y, num_classes)
+
+        step_mod._drop_labels = null
     elif mode != "program":
         raise ValueError(f"unknown mode {mode!r} for train_epoch")
     try:
         yield
     finally:
-        step_mod._finish_update, step_mod.loss_simple, step_mod.ema_update = saved
+        (step_mod._finish_update, step_mod.loss_simple, step_mod.ema_update,
+         step_mod._drop_labels) = saved
 
 
 def run(rc: RunContext) -> Outcome:
@@ -125,25 +142,29 @@ def run(rc: RunContext) -> Outcome:
     seeds = seeded.sub_seeds(rc.seed)
     hw, ch = m["img_resolution"], m["in_channels"]
     with rc.clock.part("corpus"):
-        corpus = seeded.make_corpus(int(mix["corpus_images"]), hw, ch, seeds["corpus"], rc.device)
+        n = int(mix["corpus_images"])
+        corpus = seeded.make_corpus(n, hw, ch, seeds["corpus"], rc.device)
+        labels = (seeded.make_labels(n, m["num_classes"], seeds["traffic"], rc.device)
+                  if m.get("num_classes", 0) else None)
     if rc.mode == "control":
         free_device()
-        return _control(rc, corpus, seeds)
+        return _control(rc, corpus, labels, seeds)
     with _planted(rc.mode):
-        return _program(rc, corpus, seeds)
+        return _program(rc, corpus, labels, seeds)
 
 
-def _program(rc: RunContext, corpus, seeds) -> Outcome:
+def _program(rc: RunContext, corpus, labels, seeds) -> Outcome:
     mix, B = rc.mix, int(rc.mix["batch"])
     exp, model, sched = build_program(rc)
     with rc.clock.part("import"):
         from ddpm_diffusion_model_tpu_torch.data.loader import DeviceCacheLoader
-        from ddpm_diffusion_model_tpu_torch.training.loop import train_one_epoch
+        from ddpm_diffusion_model_tpu_torch.training import loop
         from ddpm_diffusion_model_tpu_torch.training.state import init_train_state
         from ddpm_diffusion_model_tpu_torch.training.step import make_train_step
+    train_one_epoch = functools.partial(loop.train_one_epoch, labeled=labels is not None)
     with rc.clock.part("corpus"):
         loader = DeviceCacheLoader(corpus, B, seed=seeds["loader"], quantize=True,
-                                   device=rc.device)
+                                   labels=labels, device=rc.device)
     state, tx = init_train_state(model, exp.train, seed=seeds["step"])
     checked = int(mix["checked_updates"])
     rec = _Recorder(make_train_step(model, sched, tx, exp.train), checked,
@@ -180,7 +201,7 @@ def _program(rc: RunContext, corpus, seeds) -> Outcome:
     del state, model, loader, rec, tx
     free_device()
 
-    numbers = _compare(rc, prog, corpus, seeds)
+    numbers = _compare(rc, prog, corpus, labels, seeds)
     e2e = {"train_images_per_s": images / window_s,
            "peak_mem_gib": peak / 2**30, "setup_s": setup_s}
     return Outcome(e2e, attempted=len(losses), failed=failed, numbers=numbers,
@@ -200,10 +221,11 @@ def _slice(rec, tick, train_one_epoch, state, loader, n):
         rec.after = None
 
 
-def _batches(rc: RunContext, corpus: np.ndarray, seeds, n: int):
+def _batches(rc: RunContext, corpus: np.ndarray, labels, seeds, n: int):
     """The loader's first ``n`` batches of its first epoch, worked out
     again from the corpus: ``default_rng(seed + 0)``'s permutation, the
-    uint8 codes as u * f32(1 / 127.5) - 1 rounded once to float32."""
+    uint8 codes as u * f32(1 / 127.5) - 1 rounded once to float32, with
+    the same rows' labels for a conditional model."""
     B = int(rc.mix["batch"])
     order = np.arange(corpus.shape[0])
     np.random.default_rng(seeds["loader"]).shuffle(order)
@@ -211,34 +233,39 @@ def _batches(rc: RunContext, corpus: np.ndarray, seeds, n: int):
 
     def get(i):
         def load():
-            rows = torch.from_numpy(corpus[order[i * B:(i + 1) * B]]).to(rc.device)
-            return (rows.double() * r - 1.0).float()
+            sel = order[i * B:(i + 1) * B]
+            rows = torch.from_numpy(corpus[sel]).to(rc.device)
+            x = (rows.double() * r - 1.0).float()
+            if labels is None:
+                return x
+            return x, torch.from_numpy(labels[sel]).to(rc.device, torch.long)
         return load
 
     return [get(i) for i in range(n)]
 
 
-def _reference(rc: RunContext, corpus, seeds, precision):
+def _reference(rc: RunContext, corpus, labels, seeds, precision):
     from ..reference.diffusion import Schedule, train_steps
 
-    model = reference_model(rc.config, rc.device, precision)
+    model = reference_model(rc, precision)
     p0 = load_reference_weights(model, rc.seed, rc.device)
     sched = Schedule(rc.config["experiment"]["diffusion"], rc.device)
     gen = torch.Generator(device=rc.device).manual_seed(seeds["step"])
     block = int(rc.mix.get("reference_row_block") or 0) or None
+    exp = rc.config["experiment"]
     with exact_fp32():
-        out = train_steps(model, sched, rc.config["experiment"]["train"],
-                          _batches(rc, corpus, seeds, int(rc.mix["checked_updates"])), gen,
-                          row_block=block)
+        out = train_steps(model, sched, exp["train"],
+                          _batches(rc, corpus, labels, seeds, int(rc.mix["checked_updates"])),
+                          gen, row_block=block, num_classes=int(exp["model"].get("num_classes", 0)))
     del model
     return out, p0
 
 
-def _compare(rc: RunContext, prog: dict, corpus, seeds) -> Dict[str, float]:
+def _compare(rc: RunContext, prog: dict, corpus, labels, seeds) -> Dict[str, float]:
     from ..reference.lowp import FP32
 
     t = time.perf_counter()
-    ref, p0 = _reference(rc, corpus, seeds, FP32)
+    ref, p0 = _reference(rc, corpus, labels, seeds, FP32)
     prog = dict(prog, params={k: v.to(rc.device) for k, v in prog["params"].items()},
                 ema={k: v.to(rc.device) for k, v in prog["ema"].items()})
     numbers = checks.train_numbers(prog, ref, p0)
@@ -247,17 +274,17 @@ def _compare(rc: RunContext, prog: dict, corpus, seeds) -> Dict[str, float]:
     return numbers
 
 
-def _control(rc: RunContext, corpus, seeds) -> Outcome:
+def _control(rc: RunContext, corpus, labels, seeds) -> Outcome:
     """The fp8 reference in the program's place, held to the same check."""
     from ..reference.lowp import FP8
 
-    low, _ = _reference(rc, corpus, seeds, FP8)
+    low, _ = _reference(rc, corpus, labels, seeds, FP8)
     prog = {"losses": low["losses"],
             "first_grad": {k: float(torch.linalg.vector_norm(g.double()))
                            for k, g in low["first_grad"].items()},
             "params": low["params"], "ema": low["ema"]}
     free_device()
-    numbers = _compare(rc, prog, corpus, seeds)
+    numbers = _compare(rc, prog, corpus, labels, seeds)
     bad = sum(1 for v in prog["losses"] if not math.isfinite(v))
     return Outcome({}, attempted=len(prog["losses"]), failed=bad, numbers=numbers,
                    peak_bytes=0)

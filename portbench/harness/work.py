@@ -8,16 +8,26 @@ forward; a step is three forwards' worth) and from ``chip_smoke.py``'s
 that a later change to the program cannot move the yardstick.  Every
 function takes the configuration as the benchmark's JSON holds it (the
 ``model`` mapping), never a config object of the program.
+
+The counts of a configuration's work (``fwd_flops``, ``attn_calls``,
+``gn_calls``) are its reference module's where that defines them (a
+configuration brings its own as a new file); the U-Net's and the DiT's
+here are the fallback for a reference that defines none.  What follows
+from them (``train_step_flops``, ``flash_bound_s``, ``gn_bound_s``) takes
+the same ``counts``; :func:`with_counts` binds them for a per-layer reader.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+import types
+from typing import List, Tuple
 
 __all__ = ["PEAK_FLOPS", "HBM_BYTES_PER_S", "fwd_flops", "train_step_flops",
            "gn_calls", "attn_calls", "gn_bytes_flops",
            "gn_bwd_bytes_flops", "flash_bytes_flops", "flash_dq_bytes_flops",
-           "flash_dkv_bytes_flops", "bound_s", "unet_levels"]
+           "flash_dkv_bytes_flops", "bound_s", "gn_bound_s", "flash_bound_s",
+           "unet_levels", "with_counts"]
 
 #: dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by operand type
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -109,25 +119,12 @@ def dit_fwd_flops(m: dict, batch: int) -> int:
     return int(batch * f)
 
 
-def fwd_flops(m: dict, batch: int) -> int:
-    """Matmul and conv FLOPs of one forward of ``batch`` images."""
-    return dit_fwd_flops(m, batch) if m.get("family") == "dit" else unet_fwd_flops(m, batch)
-
-
-def train_step_flops(m: dict, batch: int) -> int:
-    """One update: the forward and a backward of about twice its work."""
-    return 3 * fwd_flops(m, batch)
-
-
 # ------------------------------------------------------------ the op work
 
-def gn_calls(m: dict, batch: int) -> List[Tuple[Tuple[int, int, int, int], bool]]:
-    """Every GroupNorm+SiLU of one U-Net forward: ((B, H, W, C), with a time
-    bias), in the forward's order (two per ResBlock, the second with the
-    time bias, then the head's); the attention blocks' GroupNorm is a plain
-    one and not in the list.  A DiT has none."""
-    if m.get("family") == "dit":
-        return []
+def unet_gn_calls(m: dict, batch: int) -> List[Tuple[Tuple[int, int, int, int], bool]]:
+    """A U-Net's: two per ResBlock, the second with the time bias, then the
+    head's; the attention blocks' GroupNorm is a plain one and not in the
+    list."""
     levels, bres = unet_levels(m)
     calls = []
 
@@ -151,12 +148,12 @@ def gn_calls(m: dict, batch: int) -> List[Tuple[Tuple[int, int, int, int], bool]
     return calls
 
 
-def attn_calls(m: dict, batch: int) -> List[Tuple[int, int, int]]:
-    """Every attention of one forward as its (B * heads, N, head_dim)."""
-    if m.get("family") == "dit":
-        N = (m["img_resolution"] // m["patch_size"]) ** 2
-        h = m["num_heads"]
-        return [(batch * h, N, m["hidden_size"] // h)] * m["depth"]
+def dit_gn_calls(m: dict, batch: int) -> list:
+    """A DiT has none."""
+    return []
+
+
+def unet_attn_calls(m: dict, batch: int) -> List[Tuple[int, int, int]]:
     levels, bres = unet_levels(m)
     shape = lambda res: (batch * m["num_heads"], res * res, m["head_dim"])  # noqa: E731
     calls = [shape(lv["resolution"]) for lv in levels if lv["use_attn"]
@@ -164,6 +161,52 @@ def attn_calls(m: dict, batch: int) -> List[Tuple[int, int, int]]:
     if bres in set(m["attn_resolutions"]):
         calls.append(shape(bres))
     return calls
+
+
+def dit_attn_calls(m: dict, batch: int) -> List[Tuple[int, int, int]]:
+    N = (m["img_resolution"] // m["patch_size"]) ** 2
+    h = m["num_heads"]
+    return [(batch * h, N, m["hidden_size"] // h)] * m["depth"]
+
+
+# ---------------------------------------------- a configuration's counts
+
+#: the counts of a configuration whose reference module defines none, by
+#: its model's ``family`` (a DiT's; else the U-Net)
+_FAMILY = {"dit": {"fwd_flops": dit_fwd_flops, "gn_calls": dit_gn_calls,
+                   "attn_calls": dit_attn_calls},
+           "unet": {"fwd_flops": unet_fwd_flops, "gn_calls": unet_gn_calls,
+                    "attn_calls": unet_attn_calls}}
+
+
+def _counted(m: dict, name: str, counts):
+    """``counts.<name>`` where the reference module ``counts`` defines it,
+    else the family's."""
+    own = getattr(counts, name, None)
+    if own is not None:
+        return own
+    return _FAMILY["dit" if m.get("family") == "dit" else "unet"][name]
+
+
+def fwd_flops(m: dict, batch: int, counts=None) -> int:
+    """Matmul and conv FLOPs of one forward of ``batch`` images."""
+    return _counted(m, "fwd_flops", counts)(m, batch)
+
+
+def train_step_flops(m: dict, batch: int, counts=None) -> int:
+    """One update: the forward and a backward of about twice its work."""
+    return 3 * fwd_flops(m, batch, counts)
+
+
+def gn_calls(m: dict, batch: int, counts=None) -> List[Tuple[Tuple[int, int, int, int], bool]]:
+    """Every GroupNorm+SiLU of one forward: ((B, H, W, C), with a time
+    bias), in the forward's order."""
+    return _counted(m, "gn_calls", counts)(m, batch)
+
+
+def attn_calls(m: dict, batch: int, counts=None) -> List[Tuple[int, int, int]]:
+    """Every attention of one forward as its (B * heads, N, head_dim)."""
+    return _counted(m, "attn_calls", counts)(m, batch)
 
 
 def gn_bytes_flops(shape, dtype_bytes, with_tb):
@@ -212,26 +255,38 @@ def bound_s(nbytes: float, flops: float, dtype: str = "bfloat16") -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
 
 
-def gn_bound_s(m: dict, batch: int, backward: bool, dtype_bytes: int = 2) -> float:
+def gn_bound_s(m: dict, batch: int, backward: bool, dtype_bytes: int = 2,
+               counts=None) -> float:
     """The least time of one forward's GroupNorm+SiLU work (with
     ``backward``, of its backward as well; every time bias takes a
     gradient)."""
     total = 0.0
-    for shape, tb in gn_calls(m, batch):
+    for shape, tb in gn_calls(m, batch, counts):
         total += bound_s(*gn_bytes_flops(shape, dtype_bytes, tb))
         if backward:
             total += bound_s(*gn_bwd_bytes_flops(shape, dtype_bytes, tb, tb))
     return total
 
 
-def flash_bound_s(m: dict, batch: int, backward: bool, dtype_bytes: int = 2) -> float:
+def flash_bound_s(m: dict, batch: int, backward: bool, dtype_bytes: int = 2,
+                  counts=None) -> float:
     """The least time of one forward's attention work (with ``backward``,
     of dQ and dK/dV as well)."""
     total = 0.0
-    for shape in attn_calls(m, batch):
+    for shape in attn_calls(m, batch, counts):
         total += bound_s(*flash_bytes_flops(shape, dtype_bytes))
         if backward:
             total += bound_s(*flash_dq_bytes_flops(shape, dtype_bytes))
             total += bound_s(*flash_dkv_bytes_flops(shape, dtype_bytes))
     return total
 
+
+def with_counts(counts) -> types.SimpleNamespace:
+    """This module's names with the reference module ``counts`` bound into
+    every function that takes it: what a per-layer reader gets as
+    ``ctx.work``."""
+    ns = {k: globals()[k] for k in __all__ if k != "with_counts"}
+    for k in ("fwd_flops", "train_step_flops", "gn_calls", "attn_calls", "gn_bound_s",
+              "flash_bound_s"):
+        ns[k] = functools.partial(ns[k], counts=counts)
+    return types.SimpleNamespace(**ns)

@@ -5,8 +5,11 @@ AdamW on a linear warmup, EMA).
 These follow Ho et al. (2020) as the repository states them: betas linear in [beta_min, beta_max] over T steps, alpha-bar
 their cumulative product in float32; x_t = sqrt(ab_t) x0 + sqrt(1 - ab_t)
 eps with t ~ U{1..T-1} and eps ~ N(0, I) drawn in that order from the
-step's generator (which then feeds the model's dropout); L_simple the mean
-over the batch of each row's mean squared error; optax's
+step's generator, then for a class-conditional model each row's label drop
+(``rand < cond_dropout``: the label becomes the NULL token ``num_classes``),
+the generator then feeding the model's dropout; L_simple the mean over
+the batch of each row's mean squared error, plus the model's auxiliary
+loss where its forward returns one; optax's
 ``chain(clip_by_global_norm, adamw)`` with eps 1e-8 and bias corrections in
 float32; EMA ``e <- d e + (1 - d) p``.
 """
@@ -49,15 +52,19 @@ def lr_at(train: dict, count: int) -> float:
 
 
 def train_steps(model: torch.nn.Module, sched: Schedule, train: dict,
-                batches: Sequence[Callable[[], torch.Tensor]], generator: torch.Generator,
-                row_block: Optional[int] = None) -> Dict[str, object]:
+                batches: Sequence[Callable[[], object]], generator: torch.Generator,
+                row_block: Optional[int] = None, num_classes: int = 0) -> Dict[str, object]:
     """``len(batches)`` updates of ``model``'s parameters from their values,
-    each on the batch its callable returns, t and noise drawn from
-    ``generator`` (then the dropout masks, in the forward).  ``row_block``
-    splits a batch into blocks of rows whose gradients add up (a model with
-    no random draws in its forward only).  Returns the losses, the first
-    update's clipped gradient by name, and the parameters and EMA after
-    the last update by name."""
+    each on the batch its callable returns (images, or ``(images, labels)``
+    for a model of ``num_classes`` classes, called as ``model(x_t, t,
+    generator, y=labels)``), t and noise drawn from ``generator``, then the
+    label drop, then the dropout masks, in the forward.  A forward that
+    returns ``(eps, aux)`` adds ``aux``, already weighted as the
+    configuration's step weights it, to the update's L_simple.
+    ``row_block`` splits a batch into blocks of rows whose gradients add up
+    (a model with no random draws in its forward and no auxiliary loss
+    only).  Returns the losses, the first update's clipped gradient by name,
+    and the parameters and EMA after the last update by name."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     b1, b2, eps = float(train["adam_b1"]), float(train["adam_b2"]), 1e-8
@@ -69,18 +76,31 @@ def train_steps(model: torch.nn.Module, sched: Schedule, train: dict,
     losses: List[float] = []
     first_grad = None
     for step, get_batch in enumerate(batches):
-        x0 = get_batch()
+        batch = get_batch()
+        x0, y = batch if isinstance(batch, tuple) else (batch, None)
         B = x0.shape[0]
         t = torch.randint(1, sched.T, (B,), generator=generator, device=x0.device)
         noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+        if y is not None:
+            if num_classes <= 0:
+                raise ValueError("labels given for a model of no classes")
+            drop = torch.rand((B,), generator=generator, device=x0.device) < float(
+                train["cond_dropout"])
+            y = torch.where(drop, torch.full_like(y, num_classes), y)
         x_t = sched.at(sched.sqrt_ab, t) * x0 + sched.at(sched.sqrt_omb, t) * noise
         grads = [torch.zeros_like(p) for p in params]
         total = torch.zeros((), device=x0.device)
         for s in range(0, B, row_block or B):
             sl = slice(s, s + (row_block or B))
-            pred = model(x_t[sl], t[sl], generator)
+            out = model(x_t[sl], t[sl], generator, **({} if y is None else {"y": y[sl]}))
+            pred, aux = out if isinstance(out, tuple) else (out, None)
+            if aux is not None and x_t[sl].shape[0] < B:
+                raise ValueError(f"an auxiliary loss is the whole batch's: row_block "
+                                 f"{row_block} < batch {B}")
             rows = (noise[sl] - pred).square().mean(dim=(1, 2, 3))
             part = rows.sum() / B
+            if aux is not None:
+                part = part + aux
             for g, d in zip(grads, torch.autograd.grad(part, params)):
                 g.add_(d)
             total += part.detach()

@@ -6,9 +6,12 @@ Patchify (a reshape and a Linear) -> fixed 2-D sin/cos positions -> blocks
 of adaLN-Zero modulation (LayerNorm without affine, eps 1e-6; multi-head
 attention; a tanh-GELU MLP; each residual gated) -> a final adaLN
 LayerNorm and a Linear back to pixel patches.  The conditioning is the
-sinusoidal time embedding through ``t_fc1`` -> SiLU -> ``t_fc2``.  Module
-names are the port's (``patch_embed``, ``t_fc1``, ``t_fc2``,
-``blocks.i.{ada,qkv,proj,fc1,fc2}``, ``final_ada``, ``final_proj``).
+sinusoidal time embedding through ``t_fc1`` -> SiLU -> ``t_fc2``, plus,
+for a class-conditional model (``num_classes > 0``), the label's row of
+``class_emb`` (``num_classes + 1`` rows, the last the NULL token of a
+dropped label).  Module names are the port's (``patch_embed``, ``t_fc1``,
+``t_fc2``, ``class_emb``, ``blocks.i.{ada,qkv,proj,fc1,fc2}``,
+``final_ada``, ``final_proj``).
 Attention runs in blocks of query rows; ``checkpoint_attention`` drops its
 probabilities after the forward and computes them again in the backward,
 so a batch at N = 4096 fits.  The published model's dropout is 0, and so
@@ -26,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from .lowp import FP32, Precision
 from .unet import _Linear, _lin, attention, sinusoidal_embedding
 
-__all__ = ["DiTRef", "posemb_2d"]
+__all__ = ["DiTRef", "MODEL", "posemb_2d"]
 
 
 def posemb_2d(h: int, w: int, dim: int) -> np.ndarray:
@@ -79,26 +82,32 @@ class _Block(nn.Module):
 
 
 class DiTRef(nn.Module):
-    """eps = DiT(x_t, t) on NHWC float32 ``x``."""
+    """eps = DiT(x_t, t[, y]) on NHWC float32 ``x``; ``y`` (B,) the labels
+    of a class-conditional model, the NULL token where dropped."""
 
     def __init__(self, cfg: dict, precision: Precision = FP32,
                  checkpoint_attention: bool = True):
         super().__init__()
-        if cfg.get("dropout", 0.0) or cfg.get("num_experts", 0) or cfg.get("num_classes", 0):
-            raise ValueError("the DiT reference covers the dense, unconditional model "
-                             "without dropout")
+        if cfg.get("dropout", 0.0) or cfg.get("num_experts", 0):
+            raise ValueError("the DiT reference covers the dense model without dropout")
         self.cfg, self.p, self.ckpt = cfg, precision, checkpoint_attention
         H, pch, C = cfg["hidden_size"], cfg["patch_size"], cfg["in_channels"]
         self.patch_embed = _Linear(pch * pch * C, H)
         self.t_fc1 = _Linear(cfg["time_embed_dim"], H)
         self.t_fc2 = _Linear(H, H)
+        if cfg.get("num_classes", 0):
+            self.class_emb = nn.Embedding(cfg["num_classes"] + 1, H)
         self.blocks = nn.ModuleList(_Block(H, cfg["num_heads"], cfg["mlp_ratio"])
                                     for _ in range(cfg["depth"]))
         self.final_ada = _Linear(H, 2 * H)
         self.final_proj = _Linear(H, pch * pch * C)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, generator=None,
+                y=None) -> torch.Tensor:
         del generator  # no dropout
+        if (y is not None) != bool(self.cfg.get("num_classes", 0)):
+            raise ValueError("labels go with a class-conditional model (num_classes > 0) "
+                             "and with it only")
         p, cfg = self.p, self.cfg
         B, Hi, Wi, C = x.shape
         pch, H = cfg["patch_size"], cfg["hidden_size"]
@@ -110,6 +119,8 @@ class DiTRef(nn.Module):
         c = _lin(p, sinusoidal_embedding(t, cfg["time_embed_dim"]), self.t_fc1.weight,
                  self.t_fc1.bias)
         c = _lin(p, F.silu(c), self.t_fc2.weight, self.t_fc2.bias)
+        if y is not None:
+            c = c + self.class_emb.weight[y]
         for blk in self.blocks:
             tok = blk(p, tok, c, self.ckpt)
         shift, scale = _lin(p, F.silu(c), self.final_ada.weight,
@@ -118,3 +129,6 @@ class DiTRef(nn.Module):
         out = _lin(p, h, self.final_proj.weight, self.final_proj.bias)
         out = out.reshape(B, hp, wp, pch, pch, C).permute(0, 1, 3, 2, 4, 5)
         return out.reshape(B, Hi, Wi, C)
+
+
+MODEL = DiTRef

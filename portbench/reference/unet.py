@@ -32,7 +32,7 @@ from torch import nn
 
 from .lowp import FP32, Precision
 
-__all__ = ["UNetRef", "sinusoidal_embedding"]
+__all__ = ["UNetRef", "MODEL", "sinusoidal_embedding"]
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -238,3 +238,6 @@ class UNetRef(nn.Module):
                 h = blk(p, h, temb, generator)
         out = _conv(p, _gn_silu(h, self.out_norm), self.out_conv)
         return out.permute(0, 2, 3, 1)
+
+
+MODEL = UNetRef

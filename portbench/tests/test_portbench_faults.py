@@ -38,7 +38,7 @@ def tiny(tmp_path_factory):
     and depth), its mixes to a few rows and its limits to that size."""
     root = tmp_path_factory.mktemp("tiny")
     bench = root / "portbench"
-    for d in ("metrics", "limits", "configs", "mixes"):
+    for d in ("metrics", "limits", "configs", "mixes", "reference"):
         shutil.copytree(BENCH_DIR / d, bench / d)
     for name, upd in SIZES.items():
         path = bench / "configs" / f"{name}.json"

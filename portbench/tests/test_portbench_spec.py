@@ -59,7 +59,7 @@ def test_cell_files(w):
     spec = Spec()
     assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     cfg = spec.config(w["config"])
-    assert cfg["reference"] in ("unet", "dit")
+    assert callable(spec.reference(cfg["reference"]).MODEL)
     assert spec.mix(w["traffic"])["kind"] == "train_epoch"
     assert spec.limits(w["name"])
     reported = {e["name"] for e in spec.end_to_end(w["name"])}
@@ -101,6 +101,25 @@ def test_a_new_mix_and_metric_are_found_by_name(tmp_path):
     assert reader.SPANS == ["m:f"] and reader.read(None) == 1.5
     assert spec.driver(spec.mix("train_celeba_b64")["kind"]).run
     assert spec.limits("train.celeba64_attn.b64") == {"loss_gap": 0.1}
+
+
+def test_a_reference_module_is_found_by_name(tmp_path):
+    """A configuration's ``reference`` names a new file of ``reference/``;
+    an unknown name fails with the path it looked for."""
+    bench = tmp_path / "portbench"
+    (bench / "reference").mkdir(parents=True)
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    (bench / "reference" / "plain_x.py").write_text(
+        "from .dit import DiTRef\n\n\nclass MODEL(DiTRef):\n    pass\n\n\n"
+        "def fwd_flops(m, batch):\n    return 5 * batch\n")
+    spec = Spec(tmp_path, bench)
+    mod = spec.reference("plain_x")
+    assert mod.MODEL.__mro__[1].__name__ == "DiTRef" and mod.fwd_flops({}, 3) == 15
+    with pytest.raises(FileNotFoundError, match=str(bench / "reference" / "nope.py")):
+        spec.reference("nope")
+    (bench / "reference" / "no_model.py").write_text("X = 1\n")
+    with pytest.raises(AttributeError, match="no MODEL"):
+        spec.reference("no_model")
 
 
 def test_a_metric_of_another_cell_takes_the_reader_its_name_begins_with():

@@ -4,6 +4,7 @@ configuration the benchmark and the port's presets hold."""
 
 import importlib.util
 import json
+import types
 
 import pytest
 
@@ -78,3 +79,49 @@ def test_call_lists_match_the_models_launches():
     assert work.attn_calls(_bench_model("dit_s4_256"), 64) == [(384, 4096, 64)] * 12
     assert work.gn_calls(_bench_model("dit_s4_256"), 64) == []
 
+
+
+#: the cells' counts at their own batches, as the family functions gave them
+#: before a reference module could bring its own: (fwd_flops, attention
+#: calls, GN calls, flash_bound_s with and without the backward,
+#: gn_bound_s likewise)
+COUNTS = {"celeba64_attn": (128, 5127100432384, 5, 45, 0.0002087370507462687,
+                            5.551975164179104e-05, 0.00403771575402985,
+                            0.0016142660011940302),
+          "dit_s4_256": (64, 30944520044544, 12, 0, 0.09005100288155309,
+                         0.020011333973678463, 0.0, 0.0)}
+
+
+@pytest.mark.parametrize("name", sorted(COUNTS))
+def test_a_reference_without_counts_keeps_the_family_counts(name):
+    """The counts a per-layer reader gets for each configuration of the
+    benchmark (its reference module defines none) are those it had."""
+    from portbench.harness.spec import Spec
+
+    spec = Spec()
+    cfg = spec.config(name)
+    ref = spec.reference(cfg["reference"])
+    assert not any(hasattr(ref, k) for k in ("fwd_flops", "attn_calls", "gn_calls"))
+    w, m = work.with_counts(ref), cfg["experiment"]["model"]
+    B, fwd, n_attn, n_gn, fb, ff, gb, gf = COUNTS[name]
+    assert w.fwd_flops(m, B) == fwd and w.train_step_flops(m, B) == 3 * fwd
+    assert w.attn_calls(m, B) == work.attn_calls(m, B) and len(w.attn_calls(m, B)) == n_attn
+    assert w.gn_calls(m, B) == work.gn_calls(m, B) and len(w.gn_calls(m, B)) == n_gn
+    assert (w.flash_bound_s(m, B, backward=True), w.flash_bound_s(m, B, False)) == (fb, ff)
+    assert (w.gn_bound_s(m, B, backward=True), w.gn_bound_s(m, B, False)) == (gb, gf)
+    assert w.PEAK_FLOPS is work.PEAK_FLOPS and w.flash_bytes_flops is work.flash_bytes_flops
+
+
+def test_a_reference_modules_own_counts_are_taken():
+    own = types.SimpleNamespace(fwd_flops=lambda m, b: 7 * b,
+                                attn_calls=lambda m, b: [(b, 256, 72)],
+                                gn_calls=lambda m, b: [((b, 8, 8, 32), True)])
+    w, m = work.with_counts(own), _bench_model("dit_s4_256")
+    assert w.fwd_flops(m, 4) == 28 and w.train_step_flops(m, 4) == 84
+    assert w.flash_bound_s(m, 4, backward=True) == sum(
+        work.bound_s(*f((4, 256, 72), 2)) for f in (work.flash_bytes_flops,
+                                                   work.flash_dq_bytes_flops,
+                                                   work.flash_dkv_bytes_flops))
+    assert w.gn_bound_s(m, 4, backward=False) == work.bound_s(
+        *work.gn_bytes_flops((4, 8, 8, 32), 2, True))
+    assert work.fwd_flops(m, 4) == work.dit_fwd_flops(m, 4)
