@@ -5,7 +5,7 @@ Transformer (Peebles & Xie 2023) with adaLN-Zero conditioning and the U-Net's
 call contract, so the train step, the samplers, the service and the CLI run
 it unchanged.  Patchify (one reshape and a Linear) -> fixed 2-D sin/cos
 positions -> ``depth`` blocks (adaLN-modulated LayerNorm, multi-head
-attention, MLP or switch-routed MoE, each residual gated) -> a final
+attention, MLP or a switch-routed or dropless MoE, each residual gated) -> a final
 adaLN LayerNorm and a Linear back to pixel patches.
 
 The precision contract is JAX's: params float32; patchify, qkv, proj and
@@ -48,10 +48,11 @@ from ..parallel.tp import head_cols, head_rows, shard_heads
 from ..utils.device import resolve_device
 from .blocks import _checkpointed
 from .embeddings import sinusoidal_time_embedding
-from .moe import MoEMlp, lecun_normal_
+from .moe import DroplessMoE, MoEMlp, lecun_normal_
 
 __all__ = ["DiTConfig", "DiTBlock", "DiTDenoiser", "dit_s4_64_config",
-           "dit_b4_64_config", "dit_moe_64_config", "dit_s4_256_config"]
+           "dit_b4_64_config", "dit_moe_64_config", "dit_s4_256_config",
+           "dit_moe_xl2_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,26 @@ class DiTConfig:
     moe_aux_weight: float = 0.01
     # 0 = unconditional; index num_classes is the NULL token
     num_classes: int = 0
+    # the MoE's router: "switch" (top-1 with a capacity, GELU experts with
+    # biases: MoEMlp) or "dropless" (top-experts_per_token with no capacity,
+    # bias-free SwiGLU experts and a shared expert of shared_expert_dim when
+    # above 0: DroplessMoE, DiT-MoE's layer; the loss adds every block's
+    # balance loss, where the switch path takes their mean).  The port's
+    # own: to_dict leaves them out at their switch values, JAX's config.
+    moe_router: str = "switch"
+    experts_per_token: int = 1
+    shared_expert_dim: int = 0
+
+    def __post_init__(self):
+        if self.moe_router not in ("switch", "dropless"):
+            raise ValueError(f"moe_router must be 'switch' or 'dropless', got "
+                             f"{self.moe_router!r}")
+        if self.moe_router == "switch" and (self.experts_per_token != 1
+                                            or self.shared_expert_dim):
+            raise ValueError("experts_per_token and shared_expert_dim go with "
+                             "moe_router='dropless'")
+        if self.moe_router == "dropless" and not self.num_experts:
+            raise ValueError("moe_router='dropless' needs num_experts > 0")
 
     @property
     def seq_len(self) -> int:
@@ -81,6 +102,9 @@ class DiTConfig:
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
+        if self.moe_router == "switch":
+            for k in _DROPLESS_FIELDS:
+                del d[k]
         d["family"] = "dit"
         return d
 
@@ -91,6 +115,9 @@ class DiTConfig:
         if fam != "dit":
             raise ValueError(f"not a DiT config (family={fam!r})")
         return cls(**d)
+
+
+_DROPLESS_FIELDS = ("moe_router", "experts_per_token", "shared_expert_dim")
 
 
 def _posemb_2d_sincos(h: int, w: int, dim: int) -> np.ndarray:
@@ -153,7 +180,9 @@ class DiTBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float,
                  dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
                  num_experts: int = 0, capacity_factor: float = 1.25,
-                 attn_remat: bool = False, attn_impl: str = "auto"):
+                 attn_remat: bool = False, attn_impl: str = "auto",
+                 moe_router: str = "switch", experts_per_token: int = 1,
+                 shared_expert_dim: int = 0):
         super().__init__()
         H = hidden_size
         self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
@@ -163,7 +192,10 @@ class DiTBlock(nn.Module):
         self.ada = _dense(H, 6 * H, zero=True)
         self.qkv = _dense(H, 3 * H)
         self.proj = _dense(H, H)
-        if num_experts:
+        if num_experts and moe_router == "dropless":
+            self.moe = DroplessMoE(H, mlp, num_experts, experts_per_token, shared_expert_dim,
+                                   dtype=dtype)
+        elif num_experts:
             self.moe = MoEMlp(H, mlp, num_experts, capacity_factor, dtype=dtype)
         else:
             self.fc1 = _dense(H, mlp)
@@ -248,7 +280,9 @@ class DiTDenoiser(nn.Module):
         self.blocks = nn.ModuleList(
             DiTBlock(H, cfg.num_heads, cfg.mlp_ratio, cfg.dropout, dt, cfg.num_experts,
                      cfg.capacity_factor, attn_remat=self.remat == "attn",
-                     attn_impl=self.attn_impl)
+                     attn_impl=self.attn_impl, moe_router=cfg.moe_router,
+                     experts_per_token=cfg.experts_per_token,
+                     shared_expert_dim=cfg.shared_expert_dim)
             for _ in range(cfg.depth))
         self.final_ada = _dense(H, 2 * H, zero=True)
         self.final_proj = _dense(H, p * p * cfg.in_channels, zero=True)
@@ -269,8 +303,10 @@ class DiTDenoiser(nn.Module):
         ``mode``, ``cached`` and ``return_features`` exist for the call
         contract only: encoder-cached sampling and ``x_cond`` (the SR
         upsampler) are U-Net-only and raise.  ``return_aux`` returns
-        ``(eps, aux)`` with ``aux`` the mean over layers of the MoE
-        load-balance loss (a float32 0 for a dense model)."""
+        ``(eps, aux)`` with ``aux`` the MoE load-balance loss over the
+        layers: their mean for the switch router (JAX's), their sum for the
+        dropless one (DiT-MoE's, each block's loss added); a float32 0 for a
+        dense model."""
         if mode != "full" or return_features:
             raise ValueError(
                 "encoder-cached sampling (mode/return_features) is U-Net-"
@@ -285,7 +321,8 @@ class DiTDenoiser(nn.Module):
             auxes.append(aux)
         out = self.head(tokens, c, x)
         if return_aux:
-            return out, torch.stack(auxes).mean()
+            aux = torch.stack(auxes)
+            return out, aux.sum() if self.config.moe_router == "dropless" else aux.mean()
         return out
 
     def embed(self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None):
@@ -362,5 +399,19 @@ def dit_s4_256_config(**overrides) -> DiTConfig:
     work; 32,499,120 params."""
     base = dict(in_channels=3, img_resolution=256, patch_size=4, hidden_size=384, depth=12,
                 num_heads=6, mlp_ratio=4.0, dropout=0.0, time_embed_dim=256)
+    base.update(overrides)
+    return DiTConfig(**base)
+
+
+def dit_moe_xl2_config(**overrides) -> DiTConfig:
+    """``imagenet256_dit_moe_xl2``: DiT-MoE-XL/2-8E2A (Fei et al. 2024,
+    arXiv:2407.11633) on 32x32x4 latents: patch 2 (N = 256), 28 blocks of
+    1,152 with 16 heads of 72, each MLP 8 routed SwiGLU experts of 4,608 (2
+    a token, no capacity) and a shared one of 2,304, 1,000 classes;
+    4,167,850,768 params, 1,492,409,104 active a token."""
+    base = dict(in_channels=4, img_resolution=32, patch_size=2, hidden_size=1152, depth=28,
+                num_heads=16, mlp_ratio=4.0, dropout=0.0, time_embed_dim=256, num_experts=8,
+                moe_aux_weight=0.01, num_classes=1000, moe_router="dropless",
+                experts_per_token=2, shared_expert_dim=2304)
     base.update(overrides)
     return DiTConfig(**base)

@@ -1,7 +1,8 @@
-"""Switch-routed mixture-of-experts MLP of the DiT blocks.
+"""The mixture-of-experts MLPs of the DiT blocks: the switch-routed
+``MoEMlp`` and the dropless ``DroplessMoE``.
 
-Counterpart of ``ddpm_diffusion_model_tpu/models/moe.py``, with its
-semantics exactly:
+``MoEMlp`` is the counterpart of ``ddpm_diffusion_model_tpu/models/moe.py``,
+with its semantics exactly:
 
 - the router is a float32 Linear over the float32 tokens and a softmax;
   each token goes to its argmax expert (the first on a tie) with ``gate``
@@ -38,9 +39,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.ep import shard_experts
+from ..parallel.ep import current_ep_mesh, shard_experts
 
-__all__ = ["MoEMlp", "capacity", "lecun_normal_"]
+__all__ = ["MoEMlp", "DroplessMoE", "SwiGLU", "capacity", "lecun_normal_",
+           "grouped_swiglu_fwd", "grouped_swiglu_bwd", "grouped_mm_launches",
+           "grouped_mm_bwd_launches"]
+
+#: ``torch._grouped_mm`` calls made by the dropless layer's experts (two a
+#: forward, four a backward), and of them the backward's
+grouped_mm_launches = 0
+grouped_mm_bwd_launches = 0
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -118,3 +126,144 @@ class MoEMlp(nn.Module):
         p = probs.mean((0, 1))
         aux = float(E) * (f * p).sum()
         return y.to(x.dtype), aux
+
+
+def _span(name: str):
+    # the models load before the training package, which imports them
+    from ..training.diagnostics import span
+
+    return span(name)
+
+
+class SwiGLU(nn.Module):
+    """A bias-free SwiGLU MLP, ``down_proj(silu(gate_proj(u)) * up_proj(u))``:
+    one expert of :class:`DroplessMoE` (DiT-MoE's ``MoeMLP``)."""
+
+    def __init__(self, hidden_size: int, width: int):
+        super().__init__()
+        self.gate_proj = nn.Linear(hidden_size, width, bias=False)
+        self.up_proj = nn.Linear(hidden_size, width, bias=False)
+        self.down_proj = nn.Linear(width, hidden_size, bias=False)
+        for lin in (self.gate_proj, self.up_proj):
+            lecun_normal_(lin.weight, hidden_size)
+        lecun_normal_(self.down_proj.weight, width)
+
+    def forward(self, u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """On ``u`` in ``dtype``, with the weights cast to it."""
+        g = F.linear(u, self.gate_proj.weight.to(dtype))
+        a = F.silu(g) * F.linear(u, self.up_proj.weight.to(dtype))
+        return F.linear(a, self.down_proj.weight.to(dtype))
+
+
+def _grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor,
+                backward: bool = False) -> torch.Tensor:
+    global grouped_mm_launches, grouped_mm_bwd_launches
+    grouped_mm_launches += 1
+    grouped_mm_bwd_launches += int(backward)
+    return torch._grouped_mm(a, b, offs=offs)
+
+
+def grouped_swiglu_fwd(xs: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor,
+                       offs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts on their rows: ``xs (R, H)`` in expert order,
+    expert ``i`` taking rows ``[offs[i - 1], offs[i])``; ``w13 (E, 2F, H)``
+    each expert's gate rows then its up rows, ``w2 (E, H, F)`` its down
+    projection.  Returns ``(y (R, H), gu (R, 2F))``: ``gu`` the gate and up
+    products, which the backward takes."""
+    gu = _grouped_mm(xs, w13.transpose(-2, -1), offs)
+    g, u = gu.chunk(2, dim=-1)
+    return _grouped_mm(F.silu(g) * u, w2.transpose(-2, -1), offs), gu
+
+
+def grouped_swiglu_bwd(dy: torch.Tensor, xs: torch.Tensor, w13: torch.Tensor,
+                       w2: torch.Tensor, offs: torch.Tensor, gu: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dxs, dw13, dw2)`` of :func:`grouped_swiglu_fwd` for ``dy (R, H)``:
+    each input gradient a grouped product over the rows, each weight
+    gradient one with the offsets on its reduction axis (an expert with no
+    rows gets zeros); the SwiGLU's backward as autograd runs it in the
+    compute dtype."""
+    g, u = gu.chunk(2, dim=-1)
+    sg = F.silu(g)
+    da = _grouped_mm(dy, w2, offs, backward=True)
+    dw2 = _grouped_mm(dy.t(), sg * u, offs, backward=True)
+    dgu = torch.cat([torch.ops.aten.silu_backward(da * u, g), da * sg], dim=-1)
+    dw13 = _grouped_mm(dgu.t(), xs, offs, backward=True)
+    return _grouped_mm(dgu, w13, offs, backward=True), dw13, dw2
+
+
+class _GroupedSwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, w13, w2, offs):
+        y, gu = grouped_swiglu_fwd(xs, w13, w2, offs)
+        ctx.save_for_backward(xs, w13, w2, offs, gu)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        with _span("moe.experts.bwd"):
+            dxs, dw13, dw2 = grouped_swiglu_bwd(dy.contiguous(), *ctx.saved_tensors)
+        return dxs, dw13, dw2, None
+
+
+class DroplessMoE(nn.Module):
+    """DiT-MoE's top-``k`` mixture of bias-free SwiGLU experts with no
+    capacity and a shared expert, over ``(B, N, H)`` tokens.  ``forward``
+    returns ``(y, aux)``: ``y`` in the input's dtype, ``aux`` the layer's
+    float32 balance loss, unweighted.  The parameters carry the published
+    names (``gate.weight``, ``experts.<i>.{gate,up,down}_proj.weight``,
+    ``shared_experts.{gate,up,down}_proj.weight``), each a 2-D matrix."""
+
+    def __init__(self, hidden_size: int, mlp_dim: int, num_experts: int,
+                 experts_per_token: int = 2, shared_dim: int = 0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if not 1 <= experts_per_token <= num_experts:
+            raise ValueError(f"experts_per_token must lie in [1, {num_experts}], got "
+                             f"{experts_per_token}")
+        self.num_experts, self.k, self.dtype = num_experts, experts_per_token, dtype
+        self.gate = nn.Linear(hidden_size, num_experts, bias=False)
+        lecun_normal_(self.gate.weight, hidden_size)
+        self.experts = nn.ModuleList(SwiGLU(hidden_size, mlp_dim) for _ in range(num_experts))
+        self.shared_experts = SwiGLU(hidden_size, shared_dim) if shared_dim else None
+
+    def _stacked(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(w13 (E, 2F, H), w2 (E, H, F))`` in the compute dtype."""
+        E, ex = self.num_experts, self.experts
+        F_, H = ex[0].gate_proj.weight.shape
+        w13 = torch.stack([w for e in ex for w in (e.gate_proj.weight, e.up_proj.weight)])
+        w2 = torch.stack([e.down_proj.weight for e in ex])
+        return w13.view(E, 2 * F_, H).to(self.dtype), w2.to(self.dtype)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if current_ep_mesh() is not None:
+            raise ValueError("the dropless MoE holds all its experts on each card: it has no "
+                             "expert-parallel form (use the switch router under "
+                             "expert_parallel_mesh)")
+        B, N, H = x.shape
+        E, k, dt = self.num_experts, self.k, self.dtype
+        T = B * N
+        h = x.reshape(T, H)
+        with _span("moe.route"):
+            probs = torch.softmax(F.linear(h.float(), self.gate.weight), dim=-1)  # (T, E)
+            w, e = probs.topk(k, dim=-1)                                           # (T, k)
+            e = e.reshape(-1)
+            counts = torch.zeros(E, dtype=torch.int32, device=x.device).scatter_add_(
+                0, e, torch.ones_like(e, dtype=torch.int32))
+            order = torch.sort(e, stable=True).indices   # pairs t * k + j by expert
+            offs = counts.cumsum(0, dtype=torch.int32)
+            aux = (probs.mean(0) * counts.float()).sum() * (E / (k * T))
+        with _span("moe.dispatch"):
+            xs = h.to(dt).index_select(0, order // k)
+        w13, w2 = self._stacked()
+        with _span("moe.experts"):
+            ys = _GroupedSwiGLU.apply(xs, w13, w2, offs)
+        with _span("moe.shared"):
+            shared = None if self.shared_experts is None else self.shared_experts(h.to(dt), dt)
+        with _span("moe.combine"):
+            back = torch.empty_like(order).scatter_(
+                0, order, torch.arange(k * T, device=x.device))
+            y = (ys.index_select(0, back).view(T, k, H).float() * w[..., None]).sum(1)
+            if shared is not None:
+                y = y + shared.float()
+        return y.view(B, N, H).to(x.dtype), aux

@@ -233,8 +233,10 @@ def make_loss_fn(model: nn.Module, sched: DiffusionSchedule, weight_fn=None,
                  cond_aug: float = 0.0) -> Callable[..., torch.Tensor]:
     """``loss_fn(batch, draws) -> L_simple`` of the model as it stands
     (train mode: dropout active), from the given t and noise; for a
-    mixture-of-experts DiT plus ``moe_aux_weight`` times the layers' mean
-    load-balance loss, from the same forward, as the JAX loss adds it.  ``batch`` is
+    mixture-of-experts DiT plus ``moe_aux_weight`` times the layers'
+    load-balance loss from the same forward: their mean for the switch
+    router, as the JAX loss adds it, and their sum for the dropless one, each
+    block's loss added as DiT-MoE's ``AddAuxiliaryLoss`` does.  ``batch`` is
     images, or ``(images, labels)`` for a class-conditional model, whose
     labels become the NULL token where ``draws.drop`` is set.  With
     ``superres_factor`` the model sees ``build_cond(images, factor)``,

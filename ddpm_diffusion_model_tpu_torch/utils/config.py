@@ -10,7 +10,9 @@ the ``celeba64_low``, ``celeba64_attn``, ``celebahq256``,
 ``celeba64_dit_s4``, ``celeba64_dit_moe``, ``sr64to256`` (the 64 -> 256
 super-resolution upsampler of a cascade) and ``celeba64_latent`` (the
 denoiser of 64 px latent diffusion, on ``vae_64x_config``'s 16x16x4
-latents) presets field for field: every preset of the JAX package.
+latents) presets field for field: every preset of the JAX package.  The
+port adds ``imagenet256_dit_moe_xl2`` (DiT-MoE-XL/2-8E2A on 256-px
+ImageNet's 32x32x4 latents), which the JAX package has no model for.
 ``remat`` also takes ``"masks"`` (``UNetDenoiser(remat=)``) and a DiT's
 ``"dots"`` and ``"attn"``.
 """
@@ -21,13 +23,14 @@ import dataclasses
 import json
 from typing import Any, Dict, Union
 
-from ..models.dit import DiTConfig, dit_moe_64_config, dit_s4_64_config
+from ..models.dit import DiTConfig, dit_moe_64_config, dit_moe_xl2_config, dit_s4_64_config
 from ..models.unet import (UNetConfig, unet_64x64_config, unet_64x64_low_config,
                            unet_256x256_config, unet_latent16_config)
 from ..ops.schedules import DiffusionConfig
 from ..training.state import TrainConfig
 
-__all__ = ["ExperimentConfig", "PRESETS", "get_preset", "preset_from_experiment"]
+__all__ = ["ExperimentConfig", "PRESETS", "PORT_PRESETS", "get_preset",
+           "preset_from_experiment"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +122,21 @@ def _preset_dit(model) -> ExperimentConfig:
         img_size=64, batch_size=128, epochs=50)
 
 
+def _preset_dit_moe_xl2() -> ExperimentConfig:
+    """DiT-MoE-XL/2-8E2A on 256-px ImageNet's SD-VAE latents (32x32x4) with
+    DiT's recipe, which DiT-MoE follows: a constant 1e-4 without warmup,
+    AdamW (0.9, 0.999) without weight decay or clipping, EMA 0.9999, a
+    tenth of the labels dropped, the linear betas over 1,000 steps,
+    epsilon-prediction, a global batch of 256; 80 epochs are DiT's 400K
+    updates.  Unclamped: latents are unbounded."""
+    return ExperimentConfig(
+        model=dit_moe_xl2_config(),
+        diffusion=DiffusionConfig(T=1000, schedule="linear", img_size=32, clamp_x0=False),
+        train=TrainConfig(base_lr=1e-4, warmup_steps=0, weight_decay=0.0, grad_clip=None,
+                          ema_decay=0.9999, cond_dropout=0.1),
+        run_name="imagenet256_dit_moe_xl2", img_size=32, batch_size=256, epochs=80)
+
+
 def _preset_sr64to256() -> ExperimentConfig:
     """The 64 -> 256 upsampler stage of a cascade: the 256-px U-Net with 3
     conditioning channels, trained on its own batches' low-res views."""
@@ -154,7 +172,10 @@ PRESETS = {
     "celeba64_dit_moe": lambda: _preset_dit(dit_moe_64_config()),
     "sr64to256": _preset_sr64to256,
     "celeba64_latent": _preset_latent,
+    "imagenet256_dit_moe_xl2": _preset_dit_moe_xl2,
 }
+#: the presets the JAX package does not have
+PORT_PRESETS = ("imagenet256_dit_moe_xl2",)
 
 
 def get_preset(name: str) -> ExperimentConfig:

@@ -95,7 +95,11 @@ def dit_fwd_flops(cfg, batch: int) -> int:
     the adaLN head 12H^2; plus the patch embedding and projection and the
     conditioning MLP.  A switch MoE's block counts its router, every
     expert's E * C slots (capacity padding included) and its dispatch and
-    combine."""
+    combine.  A dropless MoE (``moe_router="dropless"``) is counted the same
+    way, as the benchmark's copy of this count (``portbench/harness/work.py``)
+    counts it and its tests hold the two equal; its true count, the k routed
+    SwiGLU rows and the shared row of each token, is its benchmark
+    reference's ``fwd_flops`` (``portbench/reference/dit_moe.py``)."""
     N, H, L = cfg.seq_len, cfg.hidden_size, cfg.depth
     r = cfg.mlp_ratio
     pc = cfg.patch_size * cfg.patch_size * cfg.in_channels

@@ -12,7 +12,9 @@ super-resolution train step and the
 upsampler's DDIM on the kernels against the plain versions, the flash
 kernels at the DiT-S/4 256-px attention (48 x 4096 x 64), a small DiT's
 forward and an MoE DiT's train step on the kernels against the plain
-versions, the service on the card,
+versions, the flash kernels at DiT-MoE-XL/2's attention (2048 x 256 x 72)
+and its dropless expert layer (no host sync; the grouped products against
+a loop over the experts), the service on the card,
 ``remat`` on the kernels, a checkpoint round trip of CUDA state, the
 device cache and ``device_prefetch`` on the card, the mounted FID
 extractor there, and ring attention's hop code on the kernels and its
@@ -820,6 +822,101 @@ def test_upsample_on_kernels_matches_plain_and_counts_launches(card, guidance):
 
 
 # ------------------------------------------------------------- the DiT
+
+
+def test_flash_kernels_at_the_dit_moe_xl2_shape(card):
+    """The flash forward, dQ and dK/dV at DiT-MoE-XL/2's attention in the
+    benchmark's cell: batch 128 x 16 heads, N = 256, d = 72 (the padded
+    head-dim path, dK/dV on mma.sync), bf16, against the plain versions."""
+    shape = (2048, 256, 72)
+    gen = torch.Generator(card).manual_seed(72)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+                   for _ in range(4))
+    variants, wgmma = _variant_counts(), tfa.bwd_dkv_wgmma_launches
+    o, lse = tfa.flash_attn_fwd(q, k, v)
+    o0, lse0 = tfa.flash_attn_reference(q, k, v)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o0.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse0, atol=1e-4, rtol=1e-5)
+    delta = (do.float() * o0.float()).sum(-1)
+    dq = tfa.flash_attn_bwd_dq(q, k, v, do, lse0, delta)
+    dk, dv = tfa.flash_attn_bwd_dkv(q, k, v, do, lse0, delta)
+    torch.cuda.synchronize()
+    got, want = _variant_delta(variants, torch.bfloat16, 1, 1, 1)
+    assert got == want and tfa.bwd_dkv_wgmma_launches == wgmma
+    assert _scaled_err(dq, tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse0, delta)) \
+        <= BWD_TOL[torch.bfloat16]
+    for a, w in zip((dk, dv), tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta)):
+        assert _scaled_err(a, w) <= BWD_TOL[torch.bfloat16]
+
+
+def _dropless_layer(card, H=1152, F=4608, shared=2304):
+    from ddpm_diffusion_model_tpu_torch.models.moe import DroplessMoE
+
+    torch.manual_seed(23)
+    return DroplessMoE(H, F, 8, 2, shared).to(card)
+
+
+def test_dropless_moe_runs_without_a_host_sync(card):
+    """DiT-MoE-XL/2's expert layer at its published widths (8 SwiGLU experts
+    of 4,608, 2 a token, a shared one of 2,304) over 8 x 256 tokens: the
+    routing, the grouped products, the combine and the backward of all of
+    them, with every synchronizing call an error."""
+    from ddpm_diffusion_model_tpu_torch.models import moe
+
+    layer = _dropless_layer(card)
+    x = torch.randn(8, 256, 1152, device=card, dtype=torch.bfloat16, requires_grad=True)
+
+    def step():
+        y, aux = layer(x)
+        (y.float().square().mean() + aux).backward()
+
+    step()  # the libraries' first-call set-up
+    torch.cuda.synchronize()
+    n, nb = moe.grouped_mm_launches, moe.grouped_mm_bwd_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (moe.grouped_mm_launches - n, moe.grouped_mm_bwd_launches - nb) == (6, 4)
+    assert all(torch.isfinite(p.grad).all() for p in layer.parameters())
+
+
+@pytest.mark.parametrize("rows", ["spread", "one_empty", "all_to_one"])
+def test_grouped_swiglu_matches_a_loop_over_the_experts_on_the_card(card, rows):
+    """The grouped forward and backward at the published widths against a
+    plain loop of bf16 products over the experts' rows, with one expert
+    given no rows and with every row given to one expert."""
+    from ddpm_diffusion_model_tpu_torch.models.moe import grouped_swiglu_bwd, grouped_swiglu_fwd
+
+    E, H, F, R = 8, 1152, 4608, 4096
+    counts = {"spread": [700, 300, 512, 488, 600, 400, 96, 1000],
+              "one_empty": [700, 300, 0, 488, 600, 400, 608, 1000],
+              "all_to_one": [0, 0, 0, R, 0, 0, 0, 0]}[rows]
+    offs = torch.tensor(counts, device=card).cumsum(0).to(torch.int32)
+    gen = torch.Generator(card).manual_seed(4608)
+    bf = dict(device=card, dtype=torch.bfloat16)
+    xs = torch.randn(R, H, generator=gen, **bf)
+    w13 = (torch.randn(E, 2 * F, H, generator=gen, **bf) * H ** -0.5).to(torch.bfloat16)
+    w2 = (torch.randn(E, H, F, generator=gen, **bf) * F ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(R, H, generator=gen, **bf)
+    y, gu = grouped_swiglu_fwd(xs, w13, w2, offs)
+    dxs, dw13, dw2 = grouped_swiglu_bwd(dy, xs, w13, w2, offs, gu)
+    leaves = [t.clone().requires_grad_(True) for t in (xs, w13, w2)]
+    ys, s = [], 0
+    for e, c in enumerate(counts):
+        rows_e = leaves[0][s:s + c]
+        g, u = (rows_e @ leaves[1][e].t()).chunk(2, dim=-1)
+        ys.append((torch.nn.functional.silu(g) * u) @ leaves[2][e].t())
+        s += c
+    want = torch.cat(ys)
+    want.backward(dy)
+    for got, ref in zip((y, dxs, dw13, dw2), (want, *(t.grad for t in leaves))):
+        assert _scaled_err(got, ref) <= 1e-2
+    empty = [e for e, c in enumerate(counts) if c == 0]
+    assert not dw13[empty].any() and not dw2[empty].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
