@@ -1,15 +1,17 @@
-// Non-causal flash attention, backward: dK and dV for long sequences on
-// Hopper's wgmma and TMA (flash_attn_bwd_dkv_wgmma).  Target: sm_90a.
+// Non-causal flash attention, backward: dK and dV (flash_attn_bwd_dkv_wgmma)
+// and dQ (flash_attn_bwd_dq_wgmma, the second half of this file) for long
+// sequences on Hopper's wgmma and TMA.  Target: sm_90a.
 // Plain C interface, loaded with ctypes by
 // ddpm_diffusion_model_tpu_torch/ops/flash_attention.py, whose _dkv_route
-// sends a call here when its operands are bf16 with d = 64, every pointer
-// is 16-byte aligned and N >= WGMMA_MIN_N = 512.  Every other call takes
-// flash_attn_bwd.cu, which the short sequences of the U-Nets (N = 256 and
-// 64), the 64-px DiT and the sampling service keep.  The threshold, on an
-// H100 at 700 W against flash_attn_bwd.cu's mma.sync kernel (PERF.md §6):
-// at N = 256 the two are level at BH = 48 and this kernel 1.2x faster at
-// BH = 384-768; from N = 512 it is 1.4-2.1x faster at every BH measured
-// (48, 384), so 512 is the first length where it wins throughout.
+// sends a call of either wrapper here when its operands are bf16 with d = 64,
+// every pointer is 16-byte aligned and N >= WGMMA_MIN_N = 512.  Every other
+// call takes flash_attn_bwd.cu, which the short sequences of the U-Nets
+// (N = 256 and 64), the 64-px DiT and the sampling service keep.  The
+// threshold, on an H100 at 700 W against flash_attn_bwd.cu's mma.sync
+// kernels (PERF.md §6): for dK/dV at N = 256 the two are level at BH = 48
+// and this kernel 1.2x faster at BH = 384-768; from N = 512 it is 1.4-2.1x
+// faster at every BH measured (48, 384), so 512 is the first length where
+// it wins throughout.  dQ crosses over at the same lengths (below).
 //
 // Serves the same TPU kernel as flash_bwd_dkv_tc_kernel, _dkv_kernel
 // (ddpm_diffusion_model_tpu/ops/flash_attention.py:169), with the same
@@ -269,6 +271,187 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_wgmma_kernel(
   }
 }
 
+// ------------------------------------------------------------------ dQ
+//
+// flash_bwd_dq_wgmma_kernel serves the same TPU kernel as flash_attn_bwd.cu's
+// flash_bwd_dq_tc_kernel, _dq_kernel (ddpm_diffusion_model_tpu/ops/
+// flash_attention.py:132), with its arithmetic and roundings:
+//     P  = exp2(Q K^T * scale * log2(e) - LSE * log2(e))   (0 past N)
+//     dS = P * (dO V^T - delta)
+//     dQ += bf16(dS) K,   stored as bf16(dQ * scale)
+// and the same products in the same order, so its dQ is bit-equal to the
+// mma.sync kernel's.  What bounds it: operations.  Three products,
+// 6 * BH * N^2 * d flops, against 5 * BH * N * d * 2 bytes: at the DiT's
+// (384, 4096, 64) 2.47 TFLOP, 2.50 ms at 989 TFLOP/s, while the bytes take
+// 0.30 ms at 3.35 TB/s.  Measured there (H100 at 700 W, CUDA events):
+// 4.3-4.9 ms a call, 51-59% of that bound, against 9.5-10.5 ms (24-26%) for
+// the mma.sync kernel; from N = 512 it is 1.6-2.2x faster at BH = 384 and
+// at least level at BH = 48 (1.3-2.3x from N = 1024), at N = 256 level at
+// BH = 48 and 384 and 1.3x faster at BH = 6144: at the dK/dV kernel's
+// crossover, so both wrappers take _dkv_route.
+//
+// Design: the dK/dV kernel's mirror, with queries as the rows of every
+// product.  A block owns 128 queries of one (bh): two consumer warpgroups of
+// 64 queries each and a producer warpgroup of which one thread issues every
+// load; setmaxnreg as there.
+//   - each consumer warp loads its 16 queries of Q and dO once, straight into
+//     the registers as wgmma A operands, and its rows' LSE and delta;
+//   - tiles of 64 keys, K and V (8 KB each, 128-byte swizzled), stream
+//     through a ring of kStages stages by TMA;
+//   - S = Q K^T and dP = dO V^T take K and V as K-major B operands, dQ += dS K
+//     takes the same K tile as an MN-major (transposed) B; all three are
+//     m64n64k16 RS, so shared memory feeds only B;
+//   - dP's wgmma is issued before P's exponentials and waited for after them,
+//     and one warpgroup's exponentials can run while the other's products
+//     occupy the tensor cores;
+//   - dS is rounded to bf16 where it stands, as the next product's A.
+// Per consumer thread: dQ, S and dP 32 fp32 registers each, Q and dO 16, dS
+// in bf16 16.  Each block writes only its own dQ rows, once: no atomics, the
+// same bits on every run.  Ragged N: TMA fills key rows past N with zeros
+// (the 3-D maps of the dK/dV kernel, rows_map), P is masked to 0 there;
+// query rows past N load as zeros and are not stored.  Shared memory 65 KB.
+// Tried on the card and left out, each within 5% of this design at
+// (384, 4096, 64) and (48, 4096, 64), inside the card's own spread: a third
+// consumer warpgroup (160 registers a thread), tiles of 128 keys (m64n128k16
+// for S and dP, 3 or 2 stages), and leaving dQ's product in flight under the
+// next tile's S and dP (ptxas injects a wait and it is 5-8% slower).  A probe
+// without the exponentials (wrong results) was 3% faster: they do not bound it.
+constexpr int kDqRows = 64 * kConsumers;            // queries per block
+constexpr uint32_t kDqTxBytes = 2 * kTileBytes;  // a K and a V tile of kBQ keys
+
+struct DqSmem {  // from a 1024-byte aligned base: every tile 1024-aligned
+  bf16 k[kStages][kBQ * kD];
+  bf16 v[kStages][kBQ * kD];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const bf16* __restrict__ q, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int N, float scale) {
+  using namespace wgmma_bf16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  DqSmem& sm =
+      *reinterpret_cast<DqSmem*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  const int bh = blockIdx.y, q0 = blockIdx.x * kDqRows;
+  const int ntiles = (N + kBQ - 1) / kBQ;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // uniform, as ptxas can see
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);                // the producer's expect_tx
+      mbar_init(&sm.empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg < kConsumers) {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int r = q0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r, r + 8
+    const int64_t base = (int64_t)bh * N * kD;
+    const float qs = scale * kLog2e;
+
+    uint32_t qf[4][4], of[4][4];
+    load_a_rows(qf, q + base, r, N, t);
+    load_a_rows(of, dout + base, r, N, t);
+    // LSE (in log2) and delta of rows r and r + 8; rows past N give 0 (their
+    // Q and dO are zeros, so dS = 0)
+    float lg[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      lg[h] = row < N ? lse[(int64_t)bh * N + row] * kLog2e : 0.f;
+      dl[h] = row < N ? delta[(int64_t)bh * N + row] : 0.f;
+    }
+
+    float gq[32], p[32], dp[32];
+    uint32_t sb[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gq[i] = 0.f;
+
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&sm.full[s], (j / kStages) & 1);
+      const uint32_t ka = smem_addr(sm.k[s]), va = smem_addr(sm.v[s]);
+
+      // S = Q K^T, then dP = dO V^T: K and V K-major, k-steps 32 bytes apart
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wgmma_m64n64k16_rs<0>(p, qf[c], desc_sw128(ka + 32 * c), c);
+      wgmma_commit();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wgmma_m64n64k16_rs<0>(dp, of[c], desc_sw128(va + 32 * c), c);
+      wgmma_commit();
+
+      // P while dP is in flight; element 4n + e: key 8n + 2t + (e & 1) of
+      // row r (e < 2) or r + 8
+      wgmma_wait<1>();
+      fence_regs(p);
+      const int kmax = N - j * kBQ;  // keys of this tile that exist
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);
+          p[4 * n + e] = col < kmax ? mma_bf16::exp2_approx(fmaf(p[4 * n + e], qs, -lg[e >> 1]))
+                                    : 0.f;
+        }
+
+      // dS = P * (dP - delta)
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - dl[(i >> 1) & 1]);
+      acc_to_a(sb, dp);
+
+      // dQ += dS K: K MN-major, k-steps 16 rows apart
+      fence_regs(gq);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wgmma_m64n64k16_rs<1>(gq, sb[c], desc_sw128(ka + 2048 * c), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gq);
+      fence_regs(sb);
+
+      // the stage is read: hand it back to the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+
+    // dQ * scale as bf16, rows r and r + 8, columns 8n + 2t, 8n + 2t + 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      if (row < N) {
+        uint32_t* dqr = reinterpret_cast<uint32_t*>(dq + base + (int64_t)row * kD);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          dqr[4 * n + t] = mma_bf16::pack(gq[4 * n + 2 * h] * scale, gq[4 * n + 2 * h + 1] * scale);
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], kDqTxBytes);
+        tma_load_3d(sm.k[s], &tm_k, &sm.full[s], 0, j * kBQ, bh);
+        tma_load_3d(sm.v[s], &tm_v, &sm.full[s], 0, j * kBQ, bh);
+      }
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -316,6 +499,15 @@ bool flat_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int BH, int N)
          == CUDA_SUCCESS;
 }
 
+// What both entry points take: bf16 (BH, N, 64) operands behind 16-byte
+// aligned pointers, with BH * N within the 32-bit row indices.
+bool takes(const void* const* ptrs, int n, int BH, int N, int d, int is_bf16) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  return is_bf16 && d == kD && BH > 0 && BH <= 65535 && N > 0
+         && (int64_t)BH * N <= (int64_t)1 << 31;
+}
+
 }  // namespace
 
 // As flash_attn_bwd.cu's flash_attn_bwd_dkv, for what _dkv_route sends
@@ -329,11 +521,7 @@ extern "C" int flash_attn_bwd_dkv_wgmma(const void* q, const void* k, const void
                                         int N, int d, float scale, int is_bf16,
                                         void* stream) {
   const void* ptrs[] = {q, k, v, dout, lse, delta, dk, dv};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
-  if (!is_bf16 || d != kD || BH <= 0 || BH > 65535 || N <= 0
-      || (int64_t)BH * N > (int64_t)1 << 31)
-    return (int)cudaErrorInvalidValue;
+  if (!takes(ptrs, 8, BH, N, d, is_bf16)) return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tdo, tl, td;
@@ -348,5 +536,33 @@ extern "C" int flash_attn_bwd_dkv_wgmma(const void* q, const void* k, const void
   flash_bwd_dkv_wgmma_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       tq, tdo, tl, td, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, scale);
+  return (int)cudaGetLastError();
+}
+
+// As flash_attn_bwd.cu's flash_attn_bwd_dq, for what the route sends here:
+// q, k, v, dout, dq (BH, N, 64) bf16 (is_bf16 = 1), lse and delta (BH, N)
+// fp32, every pointer 16-byte aligned.  Returns cudaErrorInvalidValue for
+// anything else or a tensor map cuTensorMapEncodeTiled refuses, else
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int flash_attn_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dq, int BH, int N, int d, float scale,
+                                       int is_bf16, void* stream) {
+  const void* ptrs[] = {q, k, v, dout, lse, delta, dq};
+  if (!takes(ptrs, 7, BH, N, d, is_bf16)) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap tk, tv;
+  if (!rows_map(enc, &tk, k, BH, N) || !rows_map(enc, &tv, v, BH, N))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = sizeof(DqSmem) + 1024;  // + room to align the base
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + kDqRows - 1) / kDqRows, BH);
+  flash_bwd_dq_wgmma_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      tk, tv, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      N, scale);
   return (int)cudaGetLastError();
 }

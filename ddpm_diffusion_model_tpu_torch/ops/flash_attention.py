@@ -7,8 +7,8 @@ input dtype and LSE in fp32.  ``flash_attn_fwd`` (O and LSE, from
 (from ``csrc/flash_attn_bwd.cu``) launch their kernels for CUDA tensors and
 run the plain versions for CPU tensors; a CUDA tensor a kernel does not
 take raises.  Each of the three has two kernels behind one C entry point,
-chosen by dtype: bf16 on the tensor cores, fp32 on fp32 FMA; dK/dV has a
-third, bf16 on Hopper's wgmma and TMA for long sequences
+chosen by dtype: bf16 on the tensor cores, fp32 on fp32 FMA; dQ and dK/dV
+each have a third, bf16 on Hopper's wgmma and TMA for long sequences
 (``csrc/flash_attn_bwd_sm90.cu``), chosen by :func:`_dkv_route` from the
 shape.
 :func:`flash_attention` is the custom VJP of the JAX module as a
@@ -32,7 +32,8 @@ __all__ = ["flash_attn_reference", "flash_attn_fwd",
            "flash_attention", "launches", "fwd_tc_launches",
            "fwd_fma_launches", "bwd_dq_launches", "bwd_dkv_launches",
            "bwd_dq_tc_launches", "bwd_dq_fma_launches", "bwd_dkv_tc_launches",
-           "bwd_dkv_fma_launches", "bwd_dkv_wgmma_launches", "bwd_layout_copies"]
+           "bwd_dkv_fma_launches", "bwd_dq_wgmma_launches", "bwd_dkv_wgmma_launches",
+           "bwd_layout_copies"]
 
 #: Number of times :func:`flash_attn_fwd` launched a CUDA kernel, and of
 #: those the tensor-core kernel (bf16) and the FMA kernel (fp32).
@@ -47,16 +48,18 @@ bwd_dq_tc_launches = 0
 bwd_dq_fma_launches = 0
 bwd_dkv_tc_launches = 0
 bwd_dkv_fma_launches = 0
-#: Of ``bwd_dkv_tc_launches``, those of the wgmma kernel for long sequences.
+#: Of ``bwd_dq_tc_launches`` and ``bwd_dkv_tc_launches``, those of the
+#: wgmma kernels for long sequences.
+bwd_dq_wgmma_launches = 0
 bwd_dkv_wgmma_launches = 0
 #: Number of times the autograd backward had to copy a non-contiguous dO.
 bwd_layout_copies = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
-#: The head dim the wgmma dK/dV kernel takes, and the sequence length from
-#: which it beats the mma.sync kernel at every batch measured on an H100
-#: (PERF.md §6); the U-Nets' N = 256 and 64 stay on mma.sync.
+#: The head dim the wgmma dQ and dK/dV kernels take, and the sequence length
+#: from which each beats its mma.sync kernel at every batch measured on an
+#: H100 (PERF.md §6); the U-Nets' N = 256 and 64 stay on mma.sync.
 WGMMA_HEAD_DIM = 64
 WGMMA_MIN_N = 512
 
@@ -187,15 +190,22 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def flash_attn_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
-    """dQ for (BH, N, d) operands: for CUDA tensors the tensor-core kernel
-    (bf16) or the FMA kernel (fp32), the plain version for CPU tensors;
-    ``lse`` and ``delta`` (BH, N) fp32."""
+    """dQ for (BH, N, d) operands: for CUDA tensors the kernel
+    :func:`_dkv_route` names (bf16 on the tensor cores, by wgmma for long
+    sequences; fp32 on FMA), the plain version for CPU tensors; ``lse`` and
+    ``delta`` (BH, N) fp32."""
     global bwd_dq_launches, bwd_dq_tc_launches, bwd_dq_fma_launches
+    global bwd_dq_wgmma_launches
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_attn_bwd_dq_reference(q, k, v, do, lse, delta)
     BH, N, d = q.shape
-    fn = _kernel("flash_attn_bwd", "flash_attn_bwd_dq", 7, 3)
+    route = _dkv_route(q.dtype, N, d, all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, do, lse, delta)))
+    if route == "wgmma":
+        fn = _kernel("flash_attn_bwd_sm90", "flash_attn_bwd_dq_wgmma", 7, 3)
+    else:
+        fn = _kernel("flash_attn_bwd", "flash_attn_bwd_dq", 7, 3)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -203,17 +213,21 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, N, d,
                 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dq kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash_attn_bwd_dq ({route}) kernel launch failed: "
+                           f"cudaError {rc}")
     bwd_dq_launches += 1
-    if q.dtype == torch.bfloat16:
-        bwd_dq_tc_launches += 1
-    else:
+    if route == "fma":
         bwd_dq_fma_launches += 1
+    else:
+        bwd_dq_tc_launches += 1
+        if route == "wgmma":
+            bwd_dq_wgmma_launches += 1
     return dq
 
 
 def _dkv_route(dtype: torch.dtype, N: int, d: int, aligned: bool) -> str:
-    """The dK/dV kernel for a CUDA call: ``"wgmma"`` (bf16, d =
+    """The kernel of a CUDA call to either backward wrapper, dQ or dK/dV (the
+    two cross over at the same lengths): ``"wgmma"`` (bf16, d =
     :data:`WGMMA_HEAD_DIM`, every operand 16-byte aligned, N >=
     :data:`WGMMA_MIN_N`), ``"tc"`` (any other bf16 call, on mma.sync) or
     ``"fma"`` (fp32)."""

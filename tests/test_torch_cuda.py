@@ -9,7 +9,9 @@ guided (CFG) forward and a class-conditional train step on the kernels
 against the plain versions, a guided progressive and a consistency
 distillation update on the kernels against the plain versions, a
 super-resolution train step and the
-upsampler's DDIM on the kernels against the plain versions, the flash
+upsampler's DDIM on the kernels against the plain versions, the wgmma
+dQ and dK/dV kernels for long sequences against the plain versions and
+bit for bit against mma.sync, the flash
 kernels at the DiT-S/4 256-px attention (48 x 4096 x 64), a small DiT's
 forward and an MoE DiT's train step on the kernels against the plain
 versions, the flash kernels at DiT-MoE-XL/2's attention (2048 x 256 x 72)
@@ -334,6 +336,60 @@ def test_flash_dkv_wgmma_route_leaves_short_and_unaligned_calls(card, shape, cas
                                                                        before[1] + 1)
     for a, w in zip((dk, dv), tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse, delta)):
         assert _scaled_err(a, w) <= BWD_TOL[torch.bfloat16]
+
+
+# the wgmma dQ route: the DiT's attention at 256 px (8 x 6 heads), the
+# threshold's length at a large batch and two ragged N past it
+DQ_WGMMA_SHAPES = [(48, 4096, 64), (384, tfa.WGMMA_MIN_N, 64), (6, 4100, 64), (8, 600, 64)]
+
+
+@pytest.mark.parametrize("shape", DQ_WGMMA_SHAPES)
+def test_flash_dq_wgmma_route_matches_plain_and_mma_sync(card, shape, monkeypatch):
+    """Long bf16 sequences take the wgmma dQ kernel (counted in both
+    bwd_dq_wgmma_launches and bwd_dq_tc_launches): within BWD_TOL of the
+    plain version, bit-equal to the mma.sync kernel on the same inputs (the
+    same products in the same order, the same roundings) and to a second
+    call (no atomics)."""
+    gen = torch.Generator(card).manual_seed(24)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = tfa.flash_attn_reference(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (tfa.bwd_dq_wgmma_launches, tfa.bwd_dq_tc_launches)
+    dq = tfa.flash_attn_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (tfa.bwd_dq_wgmma_launches, tfa.bwd_dq_tc_launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert dq.dtype == torch.bfloat16 and dq.shape == shape
+    assert _scaled_err(dq, tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse, delta)) \
+        <= BWD_TOL[torch.bfloat16]
+    assert torch.equal(tfa.flash_attn_bwd_dq(q, k, v, do, lse, delta), dq)
+    monkeypatch.setattr(tfa, "_dkv_route", lambda *args: "tc")
+    mma_sync = tfa.flash_attn_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert tfa.bwd_dq_wgmma_launches == before[0] + 2
+    assert torch.equal(mma_sync, dq)
+
+
+@pytest.mark.parametrize("shape,case", [((512, 256, 64), ""), ((2, 512, 64), "unaligned"),
+                                        ((8, 1024, 72), ""), ((8, 1024, 128), ""),
+                                        ((8, 1024, 32), "")])
+def test_flash_dq_wgmma_route_leaves_short_other_dims_and_unaligned_calls(card, shape, case):
+    """The U-Net's N = 256, head dims other than 64 (DiT-MoE-XL/2's 72
+    among them) and an unaligned long call stay on mma.sync."""
+    gen = torch.Generator(card).manual_seed(25)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+                   for _ in range(4))
+    if case == "unaligned":
+        q, k, v, do = (_unaligned(t) for t in (q, k, v, do))
+    o, lse = tfa.flash_attn_reference(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (tfa.bwd_dq_wgmma_launches, tfa.bwd_dq_tc_launches)
+    dq = tfa.flash_attn_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (tfa.bwd_dq_wgmma_launches, tfa.bwd_dq_tc_launches) == (before[0], before[1] + 1)
+    assert _scaled_err(dq, tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse, delta)) \
+        <= BWD_TOL[torch.bfloat16]
 
 
 def test_flash_tensor_core_kernels_take_unaligned_operands(card):
@@ -827,12 +883,14 @@ def test_upsample_on_kernels_matches_plain_and_counts_launches(card, guidance):
 def test_flash_kernels_at_the_dit_moe_xl2_shape(card):
     """The flash forward, dQ and dK/dV at DiT-MoE-XL/2's attention in the
     benchmark's cell: batch 128 x 16 heads, N = 256, d = 72 (the padded
-    head-dim path, dK/dV on mma.sync), bf16, against the plain versions."""
+    head-dim path, dQ and dK/dV on mma.sync), bf16, against the plain
+    versions."""
     shape = (2048, 256, 72)
     gen = torch.Generator(card).manual_seed(72)
     q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
                    for _ in range(4))
-    variants, wgmma = _variant_counts(), tfa.bwd_dkv_wgmma_launches
+    variants = _variant_counts()
+    wgmma = (tfa.bwd_dq_wgmma_launches, tfa.bwd_dkv_wgmma_launches)
     o, lse = tfa.flash_attn_fwd(q, k, v)
     o0, lse0 = tfa.flash_attn_reference(q, k, v)
     atol, rtol = TOL[torch.bfloat16]
@@ -843,7 +901,7 @@ def test_flash_kernels_at_the_dit_moe_xl2_shape(card):
     dk, dv = tfa.flash_attn_bwd_dkv(q, k, v, do, lse0, delta)
     torch.cuda.synchronize()
     got, want = _variant_delta(variants, torch.bfloat16, 1, 1, 1)
-    assert got == want and tfa.bwd_dkv_wgmma_launches == wgmma
+    assert got == want and (tfa.bwd_dq_wgmma_launches, tfa.bwd_dkv_wgmma_launches) == wgmma
     assert _scaled_err(dq, tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse0, delta)) \
         <= BWD_TOL[torch.bfloat16]
     for a, w in zip((dk, dv), tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta)):
@@ -927,7 +985,8 @@ def test_flash_kernels_at_the_dit_256_length(card, dtype):
     gen = torch.Generator(card).manual_seed(8)
     q, k, v, do = (torch.randn(shape, generator=gen, device=card).to(dtype)
                    for _ in range(4))
-    variants, wgmma = _variant_counts(), tfa.bwd_dkv_wgmma_launches
+    variants = _variant_counts()
+    wgmma = (tfa.bwd_dq_wgmma_launches, tfa.bwd_dkv_wgmma_launches)
     o, lse = tfa.flash_attn_fwd(q, k, v)
     o0, lse0 = tfa.flash_attn_reference(q, k, v)
     atol, rtol = TOL[dtype]
@@ -940,7 +999,9 @@ def test_flash_kernels_at_the_dit_256_length(card, dtype):
     torch.cuda.synchronize()
     got, want = _variant_delta(variants, dtype, 1, 1, 1)
     assert got == want
-    assert tfa.bwd_dkv_wgmma_launches - wgmma == int(dtype == torch.bfloat16)
+    bf16 = int(dtype == torch.bfloat16)  # dQ and dK/dV on wgmma
+    assert (tfa.bwd_dq_wgmma_launches - wgmma[0], tfa.bwd_dkv_wgmma_launches - wgmma[1]) \
+        == (bf16, bf16)
     assert _scaled_err(dq, tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse0, delta)) \
         <= BWD_TOL[dtype]
     for a, w in zip((dk, dv), tfa.flash_attn_bwd_dkv_reference(q, k, v, do, lse0, delta)):
@@ -951,8 +1012,8 @@ def test_flash_kernels_at_the_dit_256_length(card, dtype):
 def test_a_bf16_step_takes_the_wgmma_dkv_route_by_length(card, family):
     """One bf16 forward and backward at batch 1 of the two benchmarked
     models: DiT-S/4 at 256 px (12 attention calls at N = 4096) takes the
-    wgmma dK/dV kernel on every call, the 64-px U-Net (5 calls at N = 256
-    and 64) on none."""
+    wgmma dK/dV and dQ kernels on every call, the 64-px U-Net (5 calls at
+    N = 256 and 64) on none."""
     from ddpm_diffusion_model_tpu_torch.models import (DiTDenoiser, dit_s4_256_config,
                                                        unet_64x64_config)
 
@@ -967,11 +1028,15 @@ def test_a_bf16_step_takes_the_wgmma_dkv_route_by_length(card, family):
     model = model.to(memory_format=torch.channels_last)
     x = torch.randn(1, size, size, 3, device=card)
     t = torch.tensor([500], device=card)
-    before = (tfa.bwd_dkv_launches, tfa.bwd_dkv_tc_launches, tfa.bwd_dkv_wgmma_launches)
+
+    def counts():
+        return (tfa.bwd_dkv_launches, tfa.bwd_dkv_tc_launches, tfa.bwd_dkv_wgmma_launches,
+                tfa.bwd_dq_launches, tfa.bwd_dq_tc_launches, tfa.bwd_dq_wgmma_launches)
+
+    before = counts()
     model(x, t).float().square().mean().backward()
     torch.cuda.synchronize()
-    after = (tfa.bwd_dkv_launches, tfa.bwd_dkv_tc_launches, tfa.bwd_dkv_wgmma_launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (calls, calls, wgmma)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (calls, calls, wgmma) * 2
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
 

@@ -127,14 +127,34 @@ def test_no_grad_routes_save_nothing_and_copies_are_counted():
     (torch.bfloat16, 256, 64, True, "tc"),  # the U-Nets and the 64-px DiT
     (torch.bfloat16, 64, 64, True, "tc"),
     (torch.bfloat16, 4096, 64, False, "tc"),  # an operand not 16-byte aligned
-    (torch.bfloat16, 4096, 128, True, "tc"),  # head dims the wgmma kernel does not take
+    (torch.bfloat16, 4096, 128, True, "tc"),  # head dims the wgmma kernels do not take
     (torch.bfloat16, 4096, 32, True, "tc"),
+    (torch.bfloat16, 4096, 72, True, "tc"),
+    (torch.bfloat16, 256, 72, True, "tc"),  # DiT-MoE-XL/2's attention
     (torch.float32, 4096, 64, True, "fma"),
     (torch.float32, 64, 64, True, "fma"),
 ])
 def test_dkv_route_by_shape(dtype, N, d, aligned, want):
-    """The dK/dV kernel a CUDA call takes, from what its inputs show."""
+    """The dQ and the dK/dV kernel a CUDA call takes, from what its inputs
+    show: the two wrappers share one route (their wgmma kernels cross over
+    at the same lengths)."""
     assert tfa._dkv_route(dtype, N, d, aligned) == want
+
+
+def test_dq_wgmma_launches_is_exported_and_cpu_calls_leave_it():
+    """``bwd_dq_wgmma_launches`` is public and counts kernel launches only:
+    a bf16 call on CPU tensors at a length the wgmma route takes runs the
+    plain version."""
+    assert "bwd_dq_wgmma_launches" in tfa.__all__
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _qkv_do((1, 1, tfa.WGMMA_MIN_N, 64), seed=24))
+    q, k, v, do = (t.reshape(1, tfa.WGMMA_MIN_N, 64) for t in (q, k, v, do))
+    o, lse = tfa.flash_attn_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (tfa.bwd_dq_wgmma_launches, tfa.bwd_dq_launches)
+    dq = tfa.flash_attn_bwd_dq(q, k, v, do, lse, delta)
+    assert (tfa.bwd_dq_wgmma_launches, tfa.bwd_dq_launches) == before
+    torch.testing.assert_close(dq, tfa.flash_attn_bwd_dq_reference(q, k, v, do, lse, delta))
 
 
 def test_wrappers_refuse_malformed_inputs():
