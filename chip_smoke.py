@@ -45,9 +45,19 @@ package), in phases; any failure exits non-zero before the final line.
               GN backward launches with the time-bias gradient, 13 keeping
               their chunk in shared memory and 32 re-reading it, as the
               plans say; the flash forward's, dQ's and
-              dK/dV's 5 all on the tensor cores, none on FMA); (c) the
+              dK/dV's 5 all on the tensor cores, none on FMA; the update's
+              one adamw pass after its one grad_norm pass, and its one
+              ema_lerp pass); (c) the
               step's wall and device time, idle share, top kernels and
               peak memory
+6b. update    the update's tail at the MoE cell's 1,046,066,704 params
+              (DiT-MoE-XL/2, one 7-block stage), without and with the clip:
+              the kernels' params, moments and shadow bit-equal to the
+              plain multi-tensor sequence's from one start, the norm within
+              1e-6; their device ms against the 40 / 44 B-a-param bound,
+              the plain sequence's and the library's fused AdamW with a
+              multi-tensor lerp; launches adamw/grad_norm/ema_lerp 1/0/1
+              and 1/1/1
 7. run        train_ddpm on celeba64_attn at batch 128, bf16, the preset's
               TrainConfig, 3 epochs of 4 batches with the eval pass, a DDIM
               grid (n = 16) and a checkpoint per epoch: (a) uninterrupted;
@@ -391,6 +401,11 @@ GN_FWD_SMEM_PER_FORWARD = {2 * TRAIN_BATCH: 0, TRAIN_BATCH: 0, 2 * BATCH: 23, BA
 
 KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_attn_fwd", "flash_attn_bwd_dq",
            "flash_attn_bwd_dkv")
+#: launches of the update's kernels in one train step with the clip on (the
+#: presets' grad_clip 1.0): the read-only norm pass, the one pass over the
+#: optimizer state, the EMA's pass
+UPDATE_LAUNCHES_PER_STEP = {"adamw": 1, "adamw.fused": 1, "grad_norm": 1, "grad_norm.fused": 1,
+                            "ema_lerp": 1, "ema_lerp.fused": 1}
 #: launches of each kernel in one train step (one forward and its backward),
 #: in all and by route (``read_counts``)
 LAUNCHES_PER_STEP = {"gn_silu_fwd": GN_LAUNCHES_PER_FORWARD,
@@ -413,7 +428,8 @@ LAUNCHES_PER_STEP = {"gn_silu_fwd": GN_LAUNCHES_PER_FORWARD,
                      "flash_attn_bwd_dkv.tc": FLASH_LAUNCHES_PER_FORWARD,
                      "flash_attn_bwd_dkv.wgmma": 0,
                      "flash_attn_bwd_dkv.fma": 0,
-                     "grouped_mm": 0}
+                     "grouped_mm": 0,
+                     **UPDATE_LAUNCHES_PER_STEP}
 
 
 def log(msg: str = "") -> None:
@@ -710,13 +726,21 @@ def _kernel_modules():
     return fused_norm, flash_attention
 
 
-# the wrapper names the model's differentiable ops look up when called, and
-# their plain versions
+def _update_module():
+    from ddpm_diffusion_model_tpu_torch.ops import fused_update
+
+    return fused_update
+
+
+# the wrapper names the model's differentiable ops and the update look up
+# when called, and their plain versions
 _WRAPPERS = (("fn", "gn_silu_fwd", "gn_silu_reference"),
              ("fn", "gn_silu_bwd", "gn_silu_bwd_reference"),
              ("fa", "flash_attn_fwd", "flash_attn_reference"),
              ("fa", "flash_attn_bwd_dq", "flash_attn_bwd_dq_reference"),
-             ("fa", "flash_attn_bwd_dkv", "flash_attn_bwd_dkv_reference"))
+             ("fa", "flash_attn_bwd_dkv", "flash_attn_bwd_dkv_reference"),
+             ("fu", "adamw_", "adamw_reference"),
+             ("fu", "ema_lerp_", "ema_lerp_reference"))
 
 
 @contextlib.contextmanager
@@ -724,7 +748,7 @@ def _rebound(replace):
     """Rebind each wrapper name to ``replace(module, name, plain_name)``
     for the duration."""
     fn, fa = _kernel_modules()
-    mods = {"fn": fn, "fa": fa}
+    mods = {"fn": fn, "fa": fa, "fu": _update_module()}
     saved = [(mods[m], name, getattr(mods[m], name)) for m, name, _ in _WRAPPERS]
     for m, name, plain in _WRAPPERS:
         setattr(mods[m], name, replace(mods[m], name, plain))
@@ -744,10 +768,13 @@ def plain_path():
 
 def record_calls(calls):
     """Record (kind, shape, ...) of every kernel-wrapper call the model
-    makes, forward and backward."""
+    makes, forward and backward (the update's calls are not the model's:
+    they pass unrecorded)."""
 
     def rec(mod, name, _plain):
         f = getattr(mod, name)
+        if mod is _update_module():
+            return f
 
         def wrapped(*args, **kw):
             if name == "gn_silu_fwd":
@@ -783,11 +810,11 @@ def reset_counts():
 def read_counts():
     """A snapshot of the launch table, every key 0 until counted, with each
     op's launches on all its routes under the op's name (``gn_silu_fwd``,
-    ``grouped_mm``)."""
+    ``grouped_mm``, ``adamw``)."""
     from ddpm_diffusion_model_tpu_torch.utils.observe import op_total
 
     out = collections.Counter(_launch_counts())
-    for op in KERNELS + ("grouped_mm",):
+    for op in KERNELS + ("grouped_mm", "adamw", "grad_norm", "ema_lerp"):
         out[op] = op_total(op, out)
     return out
 
@@ -2054,6 +2081,144 @@ def phase_train_epoch(preset, model, images, labels=None, tag="train",
     for name, ms, count in table[:15]:
         log(f"[{tag}]   {ms:8.4f} ms  x{count:<4d} {name[:110]}")
     model.eval()
+    return res
+
+
+# ------------------------------------------------------------------ the update
+
+UPDATE_PRESET = "imagenet256_dit_moe_xl2"
+UPDATE_DEPTH = 7  # the benchmark's MoE cell: one pipeline stage of 7 blocks
+
+
+def _library_update(tx, params, grads, opt, shadow, steps, decay):
+    """The library's nearest tail, for its time alone: the metric's norm
+    (``_foreach_norm``), the clip as the fused AdamW's ``grad_scale``, the
+    fused multi-tensor AdamW (decoupled decay, its own bias corrections:
+    not the optax rounding the port keeps) and a multi-tensor lerp."""
+    import torch
+
+    cfg = tx.cfg
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = None if cfg.grad_clip is None else torch.clamp(norm / cfg.grad_clip, min=1.0)
+    torch._fused_adamw_(params, grads, opt["mu"], opt["nu"], [], steps, lr=tx.scalars(opt)[2],
+                        beta1=cfg.adam_b1, beta2=cfg.adam_b2,
+                        weight_decay=float(cfg.weight_decay or 0.0), eps=1e-8, amsgrad=False,
+                        maximize=False, grad_scale=scale, found_inf=None)
+    torch._foreach_lerp_(shadow, params, float(1.0 - decay))
+    return norm
+
+
+def phase_update():
+    """The update's tail at the MoE cell's parameter list (DiT-MoE-XL/2,
+    one 7-block stage: 1,046,066,704 fp32 params), without the clip (the
+    cell's recipe) and with it.  First one update by the kernels and one by
+    the plain multi-tensor sequence from the same params, moments, shadow
+    and grads (moments and shadow moved off their init): params, moments
+    and shadow bit-equal (the plain sequence clipped by the kernel's norm,
+    whose last bits may differ from its own), the norm within 1e-6 of the
+    multi-tensor one, else it raises.  Then device ms per update of the
+    kernels against their bytes bound (40 B a param, 44 with the clip's
+    norm pass first, at HBM_BYTES_PER_S), of the plain sequence, and of the
+    library's fused AdamW with a multi-tensor lerp (:func:`_library_update`,
+    timed only), and the kernels' launches per update.  Timed by CUDA
+    events queued behind a busy device (device time, no launch gaps) where
+    the calls let the host run ahead, else by the profiler: its traces of
+    these long calls come back short of events, which once read the kernel
+    at twice its bound's speed, so a kernel time under the bound raises."""
+    import dataclasses
+
+    import torch
+
+    from ddpm_diffusion_model_tpu_torch.models import build_denoiser
+    from ddpm_diffusion_model_tpu_torch.training import make_optimizer
+    from ddpm_diffusion_model_tpu_torch.training.state import global_norm
+    from ddpm_diffusion_model_tpu_torch.utils.config import get_preset
+
+    fu = _update_module()
+    exp = get_preset(UPDATE_PRESET)
+    model = build_denoiser(dataclasses.replace(exp.model, depth=UPDATE_DEPTH),
+                           dtype=torch.bfloat16, device="cuda")
+    params = [p.detach() for p in model.parameters()]
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand(like, scale):
+        return torch.randn(like.shape, generator=gen, device="cuda").mul_(scale)
+
+    grads = [rand(p, 1e-3) for p in params]
+    res = {"params": n, "tensors": len(params)}
+    for clip in (None, 1.0):
+        cfg = dataclasses.replace(exp.train, grad_clip=clip)
+        tx = make_optimizer(cfg)
+        opt = tx.init(params)
+        opt["count"] = opt["schedule_count"] = 10
+        for m, v in zip(opt["mu"], opt["nu"]):
+            m.copy_(rand(m, 1e-4))
+            v.copy_(rand(v, 1e-3).square_())
+        shadow = [p + rand(p, 1e-3) for p in params]
+        # one update each from one start: the kernels on a copy
+        twin = ([p.clone() for p in params], dict(opt, mu=[m.clone() for m in opt["mu"]],
+                                                  nu=[v.clone() for v in opt["nu"]]),
+                [e.clone() for e in shadow])
+        own = float(global_norm(grads))
+        reset_counts()
+        norm = fu.adamw_(tx, twin[0], grads, twin[1])
+        fu.ema_lerp_(twin[2], twin[0], cfg.ema_decay)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches = [counts["adamw"], counts["grad_norm"], counts["ema_lerp"]]
+        # the plain clip scales its grads in place: a copy of them
+        fu.adamw_reference(tx, params, [g.clone() for g in grads], opt, grad_norm=norm)
+        fu.ema_lerp_reference(shadow, params, cfg.ema_decay)
+        torch.cuda.synchronize()
+        differ = {what: sum(not torch.equal(a, b) for a, b in zip(x, y))
+                  for what, x, y in (("params", twin[0], params), ("mu", twin[1]["mu"], opt["mu"]),
+                                     ("nu", twin[1]["nu"], opt["nu"]),
+                                     ("shadow", twin[2], shadow))}
+        norm_rel = abs(float(norm) - own) / own
+        del twin
+        row = {"bound_ms": n * (44 if clip else 40) / HBM_BYTES_PER_S * 1e3,
+               "parity": dict(tensors_differ=differ, norm_rel=norm_rel), "launches": launches}
+        want = [1, int(clip is not None), 1]
+        if any(differ.values()) or norm_rel > 1e-6 or launches != want:
+            raise AssertionError(f"update (clip {clip}): {row}; the kernels should match the "
+                                 f"plain sequence bit for bit, the norm within 1e-6, with "
+                                 f"launches {want}")
+        steps = [torch.full((), float(opt["count"]), device="cuda") for _ in params]
+
+        def fused():
+            fu.adamw_(tx, params, grads, opt)
+            fu.ema_lerp_(shadow, params, cfg.ema_decay)
+
+        def plain():
+            fu.adamw_reference(tx, params, grads, opt)
+            fu.ema_lerp_reference(shadow, params, cfg.ema_decay)
+
+        def library():
+            _library_update(tx, params, grads, opt, shadow, steps, cfg.ema_decay)
+
+        for name, call in (("fused", fused), ("plain", plain), ("library", library)):
+            ms, source = _queued_ms(call, iters=3), "queued_events"
+            if ms is None:
+                ms, table = device_ms(call, iters=3, warmup=1)
+                source = ms_source(table)
+            row[name] = dict(ms=ms, ms_source=source)
+        if row["fused"]["ms"] < row["bound_ms"]:
+            raise AssertionError(f"update (clip {clip}): {row}; the kernels' time is under "
+                                 "their bound")
+        tag = "clip 1.0" if clip else "no clip"
+        log(f"[update] {tag}, {n:,} params in {len(params)} tensors: kernels bit-equal to the "
+            f"multi-tensor sequence, norm within {norm_rel:.1e}; fused "
+            f"{row['fused']['ms']:.3f} ms ({row['fused']['ms_source']}) against the "
+            f"{44 if clip else 40} B/param bound {row['bound_ms']:.3f} ms "
+            f"({100 * row['bound_ms'] / row['fused']['ms']:.1f}%), the multi-tensor sequence "
+            f"{row['plain']['ms']:.3f} ms ({row['plain']['ms_source']}), the library's fused "
+            f"AdamW and lerp {row['library']['ms']:.3f} ms ({row['library']['ms_source']}); "
+            f"launches adamw/grad_norm/ema_lerp {want}")
+        res["clip" if clip else "no_clip"] = row
+        del opt, shadow, tx, steps
+    del model, params, grads
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4093,6 +4258,24 @@ def distill_update_launches(kind):
     return want, rows
 
 
+@contextlib.contextmanager
+def _recording_grads(grads):
+    """Append the flat gradients each update takes, before the clip (which
+    the plain version applies in place), to ``grads`` for the duration."""
+    fu = _update_module()
+    inner = fu.adamw_
+
+    def record(tx, params, g, *args, **kw):
+        grads.append(_flat(g))
+        return inner(tx, params, g, *args, **kw)
+
+    fu.adamw_ = record
+    try:
+        yield
+    finally:
+        fu.adamw_ = inner
+
+
 def check_distill_launches(name, counts, kind, updates):
     """Raise unless ``counts`` are exactly ``updates`` guided updates of
     ``kind`` (every kernel and route of ``distill_update_launches``)."""
@@ -4178,16 +4361,10 @@ def _distill_parity(cond, sched, teacher_sd, batch, cfg):
         for path, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_path)):
             model.load_state_dict(teacher_sd, strict=True)
             state, tx = init_train_state(model, cfg, seed=1)
-            grads, step_opt = [], tx.step
-
-            def record(params, g, st, step_opt=step_opt, grads=grads):
-                grads.append(_flat(g))  # before the clip scales them in place
-                step_opt(params, g, st)
-
-            tx.step = record
+            grads = []
             start = _flat(model.parameters())
             reset_counts()
-            with no_tf32(), ctx():
+            with no_tf32(), ctx(), _recording_grads(grads):
                 state, m = _distill_step(kind, model, sched, tx, cfg)(state, teacher_sd, batch,
                                                                       draws)
             torch.cuda.synchronize()
@@ -4698,7 +4875,7 @@ DIT_NEAR_TIE = 1e-4
 #: flash forward, dQ and dK/dV, bf16 on mma.sync at 64 px (N = 256), dQ and
 #: dK/dV on wgmma at 256 px (N = 4096)
 DIT_LAUNCHES_PER_STEP = dict(
-    {k: 0 for k in LAUNCHES_PER_STEP},
+    {k: 0 for k in LAUNCHES_PER_STEP}, **UPDATE_LAUNCHES_PER_STEP,
     **{k: DIT_FLASH_PER_FORWARD for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
                                           "flash_attn_bwd_dkv", "flash_attn_fwd.tc",
                                           "flash_attn_bwd_dq.tc", "flash_attn_bwd_dkv.tc")})
@@ -5281,7 +5458,7 @@ def by_route(calls, dtype):
     name, the flash ones by the route ``_route`` names (bf16 on the tensor
     cores)."""
     fa = _kernel_modules()[1]
-    want = dict.fromkeys(LAUNCHES_PER_STEP, 0)
+    want = dict.fromkeys((k for k in LAUNCHES_PER_STEP if k not in UPDATE_LAUNCHES_PER_STEP), 0)
     for c in calls:
         if c[0] == "gn":
             route = "smem" if _gn_fwd_plan(c, dtype)[2] else "reread"
@@ -7892,9 +8069,9 @@ SOURCE = {"gn_silu_fwd": "gn_silu.cu", "gn_silu_bwd": "gn_silu.cu",
           "flash_attn_bwd_dkv": "flash_attn_bwd.cu"}
 
 
-PHASES = ("kernels", "unet", "serving", "train", "run", "sample", "solvers", "remat", "hq256",
-          "data", "cfg", "sr", "distill", "dit", "latent", "parallel", "model_parallel", "utils",
-          "times")
+PHASES = ("kernels", "unet", "serving", "train", "update", "run", "sample", "solvers", "remat",
+          "hq256", "data", "cfg", "sr", "distill", "dit", "latent", "parallel", "model_parallel",
+          "utils", "times")
 
 
 def main(argv=None) -> int:
@@ -7944,6 +8121,10 @@ def main(argv=None) -> int:
         parity = phase_train_parity(preset, base_sd, images)
         train = phase_train_epoch(preset, model, images)
     phase_s = {}
+    if "update" in only:
+        t0 = time.perf_counter()
+        update = phase_update()
+        phase_s["update"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(dir=str(REPO / "build")) as tmp:
         if only & {"run", "sample", "solvers"}:
             t0 = time.perf_counter()
@@ -8134,7 +8315,7 @@ def main(argv=None) -> int:
                    for shape, r in mp["head_sharded"][k].items()}}
         kernels.append(row)
     log(json.dumps({"kernels": kernels, "train_step_b128_bf16": train,
-                    "train_parity": parity, "unet_forward_b16_bf16": fwd,
+                    "train_parity": parity, "update": update, "unet_forward_b16_bf16": fwd,
                     "latency_s_n16_steps50": serving["latency_s_n16_steps50"],
                     "gn_bwd_routes_ms": routes, "gn_fwd_routes_ms": fwd_routes,
                     "run": run, "sample": sample, "remat": remat,

@@ -35,7 +35,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "library", "entry"
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"gn_silu": "gn_silu.cu", "flash_attn": "flash_attn.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
-           "flash_attn_bwd_sm90": "flash_attn_bwd_sm90.cu"}
+           "flash_attn_bwd_sm90": "flash_attn_bwd_sm90.cu", "adamw_ema": "adamw_ema.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

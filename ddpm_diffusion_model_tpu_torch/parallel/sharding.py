@@ -202,8 +202,8 @@ class StatePlacement:
         sum to the whole), the clip, AdamW and the EMA (on the local shards
         under FSDP, whose weights are then gathered), the grads cleared.
         Returns (pre-clip global grad norm, the metrics' global means)."""
+        from ..ops.fused_update import adamw_
         from ..training.ema import ema_update
-        from ..training.state import global_norm
 
         names = list(self.specs)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
@@ -225,8 +225,7 @@ class StatePlacement:
         means = tuple(p[0] / scale for p in parts[len(views):])
         if not sharded:  # data parallel, or an fsdp axis of 1
             torch._foreach_div_(grads, scales)
-            grad_norm = global_norm(grads)
-            tx.step(params, grads, state.opt_state, grad_norm=grad_norm)
+            grad_norm = adamw_(tx, params, grads, state.opt_state)
             ema_update(state.ema_params, dict(state.model.named_parameters()),
                        state.ema_decay)
         else:
@@ -248,10 +247,14 @@ class StatePlacement:
                 sq = sq + torch.stack(norms).square().sum()
             grad_norm = torch.sqrt(sq)
             model_params = dict(state.model.named_parameters())
+            # a sharded leaf's block as a dense copy, laid out as its moments,
+            # shadow and gradient shards are; a replicated leaf itself
             upd_params = [self.shard(n, model_params[n].detach()) for n in names]
-            tx.step(upd_params, upd_grads, state.opt_state, grad_norm=grad_norm)
+            for i in sharded:
+                upd_params[i] = upd_params[i].contiguous()
+            adamw_(tx, upd_params, upd_grads, state.opt_state, grad_norm=grad_norm)
             ema_update(state.ema_params, dict(zip(names, upd_params)), state.ema_decay)
-            self.gather_params(state.model)
+            self.gather_params(state.model, {names[i]: upd_params[i] for i in sharded})
         for p in params:
             p.grad = None
         state.step += 1
@@ -303,12 +306,13 @@ class StatePlacement:
         return full
 
     @torch.no_grad()
-    def gather_params(self, model: torch.nn.Module) -> None:
+    def gather_params(self, model: torch.nn.Module, shards: Dict[str, torch.Tensor]) -> None:
         """The model's weights whole from every rank's shard of them (FSDP):
-        each rank's own block is the one its update wrote."""
+        each rank's own block is ``shards[name]``, the one its update
+        wrote."""
         named = dict(model.named_parameters())
         keys = self.sharded_names()
-        full = self._all_gather([self.shard(k, named[k]) for k in keys],
+        full = self._all_gather([shards[k] for k in keys],
                                 [self.specs[k] for k in keys],
                                 [self.shapes[k] for k in keys])
         for k, f in zip(keys, full):

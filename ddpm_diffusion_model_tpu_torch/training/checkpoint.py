@@ -211,8 +211,10 @@ def wait_for_checkpoints() -> None:
 
 def _restore_into(name: str, saved: Dict[str, torch.Tensor],
                   like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """``saved`` as new tensors on the devices and dtypes of ``like``, key
-    for key; raises on a missing or extra name or another shape."""
+    """``saved`` as new tensors on the devices, dtypes and memory layouts
+    of ``like``, key for key (the fused update takes a weight's moments and
+    shadow in its layout); raises on a missing or extra name or another
+    shape."""
     if list(saved) != list(like):
         missing = sorted(set(like) - set(saved))
         unexpected = sorted(set(saved) - set(like))
@@ -223,7 +225,7 @@ def _restore_into(name: str, saved: Dict[str, torch.Tensor],
         if saved[k].shape != ref.shape:
             raise ValueError(f"checkpoint {name}[{k!r}] has shape "
                              f"{tuple(saved[k].shape)}, the model {tuple(ref.shape)}")
-        out[k] = saved[k].to(device=ref.device, dtype=ref.dtype).clone()
+        out[k] = torch.empty_like(ref).copy_(saved[k])
     return out
 
 

@@ -4,7 +4,8 @@ Counterpart of ``ddpm_diffusion_model_tpu/training/ema.py``.  The shadow is
 a dict ``{parameter name: tensor}`` in the order of ``named_parameters()``;
 samplers and the eval step take it directly (``torch.func.functional_call``),
 so no weights are swapped.  :func:`ema_update` updates the shadow in place
-(one multi-tensor lerp, no second copy of the weights) and returns it.
+(one lerp, no second copy of the weights: a kernel on the card,
+``ops/fused_update.py`` ``ema_lerp_``) and returns it.
 
 The health check keeps the JAX package's failure taxonomy: len_mismatch,
 nan_or_inf_in_ema, ema_zero_norm, model_zero_norm, large_rel_diff, ok.
@@ -14,8 +15,9 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Tuple
 
-import numpy as np
 import torch
+
+from ..ops import fused_update
 
 __all__ = ["ema_init", "ema_update", "ema_health", "ema_reinit_from_params"]
 
@@ -38,10 +40,7 @@ def ema_update(ema_params: Dict[str, torch.Tensor], params: Params,
     shadow = list(ema_params.values())
     if any(e.dtype != torch.float32 for e in shadow):
         raise TypeError("the EMA shadow must be float32")
-    d = np.float32(decay)
-    torch._foreach_mul_(shadow, float(d))
-    torch._foreach_add_(shadow, [p.detach() for p in params.values()],
-                        alpha=float(np.float32(1.0) - d))
+    fused_update.ema_lerp_(shadow, [p.detach() for p in params.values()], decay)
     return ema_params
 
 

@@ -13,7 +13,10 @@ Counterpart of ``ddpm_diffusion_model_tpu/training/state.py``:
   on lists of tensors, updating params and moments in place with
   multi-tensor ops.  The clip is optax's: ``g / ||g|| * max`` only when
   ``||g|| >= max``, no epsilon.  ``moment_dtype="bfloat16"`` keeps the
-  first moment in bf16 between steps, as optax's ``mu_dtype``.
+  first moment in bf16 between steps, as optax's ``mu_dtype``.  The train
+  step's update runs it as one kernel on the card
+  (``ops/fused_update.py`` ``adamw_``), and this step is that kernel's
+  plain version.
 - :class:`TrainState`: step, the model (its parameters are the fp32
   master weights), the optimizer state, the EMA shadow, the EMA decay and
   the ``torch.Generator`` the step draws from.  The step updates it in
@@ -131,10 +134,7 @@ class AdamWClip:
                                  cfg.grad_clip / g_norm)
             torch._foreach_mul_(grads, factor)
         b1, b2 = cfg.adam_b1, cfg.adam_b2
-        count = state["count"] + 1
-        # bias corrections in float32, as optax computes decay ** count
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+        bc1, bc2, lr = self.scalars(state)
         if self.mu_dtype is None:
             mu = state["mu"]
             torch._foreach_mul_(mu, b1)
@@ -143,7 +143,7 @@ class AdamWClip:
             # as optax under jit: the weak-typed b1 takes the moment's bf16
             # (0.9 -> 0.8984375), the product and the sum are float32, and
             # the sum is stored back in bf16
-            b1_lo = float(torch.tensor(b1, dtype=self.mu_dtype))
+            b1_lo = self.b1_lo()
             mu = [g.mul(1.0 - b1).add_(m.float().mul_(b1_lo))
                   for g, m in zip(grads, state["mu"])]
         nu = state["nu"]
@@ -156,13 +156,31 @@ class AdamWClip:
         torch._foreach_div_(upd, den)
         if cfg.weight_decay:
             torch._foreach_add_(upd, params, alpha=cfg.weight_decay)
-        clock = state.get("schedule_count", state["count"])
-        torch._foreach_mul_(upd, -self.lr(clock))
+        torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
         if self.mu_dtype is not None:
             for m, m32 in zip(state["mu"], mu):
                 m.copy_(m32)
-        state["count"] = count
+        self.advance(state)
+
+    def scalars(self, state: Dict[str, Any]) -> Tuple[float, float, float]:
+        """(Adam's two bias corrections, the learning rate) of the next
+        update of ``state``: the corrections in float32, as optax computes
+        ``1 - decay ** count``, the rate at the schedule's clock."""
+        count = state["count"] + 1
+        bc1 = float(np.float32(1.0) - np.float32(self.cfg.adam_b1) ** np.float32(count))
+        bc2 = float(np.float32(1.0) - np.float32(self.cfg.adam_b2) ** np.float32(count))
+        return bc1, bc2, self.lr(state.get("schedule_count", state["count"]))
+
+    def b1_lo(self) -> float:
+        """b1 rounded to the bf16 first moment's dtype (``moment_dtype``)."""
+        return float(torch.tensor(self.cfg.adam_b1, dtype=self.mu_dtype))
+
+    @staticmethod
+    def advance(state: Dict[str, Any]) -> None:
+        """Count one update in ``state``: Adam's count and the schedule's."""
+        clock = state.get("schedule_count", state["count"])
+        state["count"] += 1
         state["schedule_count"] = clock + 1
 
 

@@ -31,12 +31,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import fused_update
 from ..ops.diffusion import loss_simple, sample_timesteps
 from ..ops.schedules import DiffusionSchedule
 from ..ops.superres import aug_cond, build_cond
 from ..utils.observe import span
 from .ema import ema_update
-from .state import AdamWClip, TrainConfig, TrainState, global_norm, make_lr_schedule
+from .state import AdamWClip, TrainConfig, TrainState, make_lr_schedule
 
 __all__ = ["StepDraws", "draw_step_inputs", "draw_placed", "make_loss_fn", "resolve_weight_fn",
            "make_train_step", "make_eval_step", "make_probe_fn"]
@@ -155,18 +156,18 @@ def _batch_on(batch, conditional: bool, device):
 def _finish_update(state: TrainState, tx: AdamWClip, params, accum: int = 1,
                    sums: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, Tuple]:
     """The tail of every update, in place: the grads of ``params`` (divided
-    by ``accum``), the optimizer step, the EMA lerp, the grads cleared and
-    the step counted.  ``sums`` are 0-d metrics summed over the
-    micro-batches.  Returns (the pre-clip global grad norm, the metrics'
-    means).  A placed state (``state.placement``, a mesh) reduces grads and
-    metrics over the ranks first (``parallel/sharding.py``)."""
+    by ``accum``), the optimizer step with its clip (one pass on the card,
+    ``ops/fused_update.py``), the EMA lerp, the grads cleared and the step
+    counted.  ``sums`` are 0-d metrics summed over the micro-batches.
+    Returns (the pre-clip global grad norm, the metrics' means).  A placed
+    state (``state.placement``, a mesh) reduces grads and metrics over the
+    ranks first (``parallel/sharding.py``)."""
     if state.placement is not None:
         return state.placement.finish_update(state, tx, params, accum, sums)
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     if accum > 1:
         torch._foreach_div_(grads, float(accum))
-    grad_norm = global_norm(grads)  # pre-clip
-    tx.step(params, grads, state.opt_state)
+    grad_norm = fused_update.adamw_(tx, params, grads, state.opt_state)  # pre-clip
     ema_update(state.ema_params, dict(state.model.named_parameters()), state.ema_decay)
     for p in params:
         p.grad = None

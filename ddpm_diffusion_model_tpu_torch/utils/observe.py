@@ -9,8 +9,11 @@ it, so the ops, the models and training all report through it.
 ``gn_silu_bwd.{smem,reread}`` (the GN kernels' chunk kept in shared memory
 or re-read, the plan's route), ``flash_attn_fwd.{tc,fma}``,
 ``flash_attn_bwd_dq.{tc,wgmma,fma}`` and ``flash_attn_bwd_dkv.{tc,wgmma,fma}``
-(bf16 on mma.sync, bf16 on wgmma, fp32 on FMA) and ``grouped_mm.{fwd,bwd}``
-(the dropless MoE's ``torch._grouped_mm`` calls).  An op's routes are
+(bf16 on mma.sync, bf16 on wgmma, fp32 on FMA), ``grouped_mm.{fwd,bwd}``
+(the dropless MoE's ``torch._grouped_mm`` calls), ``adamw.fused`` (the
+update's one pass over the optimizer state), ``grad_norm.fused`` (its
+read-only norm pass, where the clip needs the norm first) and
+``ema_lerp.fused`` (the EMA's pass).  An op's routes are
 disjoint, so its launches are their sum (:func:`op_total`).  Three counts
 are not launches and have no dot in their key: ``gn_silu_bwd_dtb`` (GN
 backward launches that also wrote the time-bias gradient),

@@ -21,8 +21,10 @@ a loop over the experts), the service on the card,
 device cache and ``device_prefetch`` on the card, the mounted FID
 extractor there, and ring attention's hop code on the kernels and its
 world-1 NCCL ring, the virtual tensor, expert and pipeline
-parallel forms on the kernels, and ``profiler_trace`` and
-``nan_debugging`` over the kernels.  Every test here carries the ``cuda`` marker and skips without a card.  The file imports no JAX, so it also runs where JAX is absent:
+parallel forms on the kernels, ``profiler_trace`` and
+``nan_debugging`` over the kernels, and the fused update (clip and AdamW
+in one kernel, the EMA in another) against the multi-tensor sequence, on
+the whole state and on an FSDP rank's shards.  Every test here carries the ``cuda`` marker and skips without a card.  The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
@@ -37,6 +39,7 @@ import torch
 from ddpm_diffusion_model_tpu_torch.models import UNetConfig, UNetDenoiser
 from ddpm_diffusion_model_tpu_torch.ops import flash_attention as tfa
 from ddpm_diffusion_model_tpu_torch.ops import fused_norm as tfn
+from ddpm_diffusion_model_tpu_torch.ops import fused_update as tfu
 from ddpm_diffusion_model_tpu_torch.utils.observe import launch_counts, op_total
 
 pytestmark = pytest.mark.cuda
@@ -444,7 +447,9 @@ _WRAPPERS = ((tfn, "gn_silu_fwd", tfn.gn_silu_reference),
              (tfn, "gn_silu_bwd", tfn.gn_silu_bwd_reference),
              (tfa, "flash_attn_fwd", tfa.flash_attn_reference),
              (tfa, "flash_attn_bwd_dq", tfa.flash_attn_bwd_dq_reference),
-             (tfa, "flash_attn_bwd_dkv", tfa.flash_attn_bwd_dkv_reference))
+             (tfa, "flash_attn_bwd_dkv", tfa.flash_attn_bwd_dkv_reference),
+             (tfu, "adamw_", tfu.adamw_reference),
+             (tfu, "ema_lerp_", tfu.ema_lerp_reference))
 
 
 @contextlib.contextmanager
@@ -1451,3 +1456,250 @@ def test_nan_debugging_over_the_kernels(card):
         finally:
             hook.remove()
     assert torch.is_anomaly_enabled() == prev
+
+
+# --------------------------------------------- the fused update (adamw_ema.cu)
+
+# the configurations of test_optimizer_and_ema_match_optax (test_torch_training.py)
+UPDATE_CFGS = {"clip": dict(grad_clip=1.0),
+               "noclip_wd": dict(grad_clip=100.0, weight_decay=0.01),
+               "noclip_nowarmup": dict(grad_clip=None, warmup_steps=None),
+               "bf16_mu": dict(grad_clip=1.0, moment_dtype="bfloat16")}
+UPDATE_OPS = ("adamw", "grad_norm", "ema_lerp")
+
+
+def _update_params(dev):
+    """Sizes 1, 3 and 4k+1, a channels_last conv weight, and one tensor of
+    more than 2**26 elements (many chunks, a ragged last one)."""
+    gen = torch.Generator(dev).manual_seed(21)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    named = {"one": rand(1), "three": rand(3), "odd": rand(4 * 1001 + 1),
+             "conv": rand(64, 32, 3, 3).contiguous(memory_format=torch.channels_last),
+             "big": rand(2**26 + 5)}
+    return {k: torch.nn.Parameter(v) for k, v in named.items()}
+
+
+def _fused_run(cfg_kw, dev, plain, given=False, norms_in=None, updates=3):
+    """``updates`` updates by the fused ops (or, ``plain``, their plain
+    versions) from the same start and grads, each clipping by the grads'
+    own norm, or by the multi-tensor norm (``given``), or by
+    ``norms_in[step]``; returns (params, mu, nu, shadow, norms, launches
+    per update of UPDATE_OPS)."""
+    from ddpm_diffusion_model_tpu_torch.training import TrainConfig, ema_init, make_optimizer
+    from ddpm_diffusion_model_tpu_torch.training.state import global_norm
+
+    adamw = tfu.adamw_reference if plain else tfu.adamw_
+    lerp = tfu.ema_lerp_reference if plain else tfu.ema_lerp_
+    cfg = TrainConfig(**dict(dict(base_lr=1e-2, warmup_steps=4, ema_decay=0.9), **cfg_kw))
+    named = _update_params(dev)
+    params = list(named.values())
+    tx = make_optimizer(cfg)
+    opt, ema = tx.init(params), ema_init(named)
+    norms, launches = [], []
+    for step in range(updates):
+        gen = torch.Generator(dev).manual_seed(100 + step)
+        grads = [3 * torch.randn(p.shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last if p.dim() == 4 else torch.contiguous_format)
+            for p in params]
+        before = Counter(launch_counts)
+        norm = global_norm(grads) if given else None
+        if norms_in is not None:
+            norm = torch.tensor(norms_in[step], dtype=torch.float32, device=dev)
+        norms.append(float(adamw(tx, params, grads, opt, grad_norm=norm)))
+        lerp(list(ema.values()), [p.detach() for p in params], cfg.ema_decay)
+        launches.append(_since(before, *UPDATE_OPS))
+    torch.cuda.synchronize()
+    assert opt["count"] == opt["schedule_count"] == updates
+    return ({k: p.detach().clone() for k, p in named.items()}, [m.clone() for m in opt["mu"]],
+            [v.clone() for v in opt["nu"]], {k: e.clone() for k, e in ema.items()}, norms,
+            launches)
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["own_norm", "norm_given"])
+@pytest.mark.parametrize("cfg", list(UPDATE_CFGS))
+def test_fused_update_matches_the_multi_tensor_sequence(card, cfg, given):
+    """Three updates on the kernels against the plain multi-tensor sequence
+    on the card: params, moments and shadow bit-equal where both clip by
+    one norm; the norm the kernel sums itself within 1e-6 relative of the
+    multi-tensor one; one update and one EMA launch per update, and the
+    norm pass only where the clip needs it."""
+    kw = UPDATE_CFGS[cfg]
+    plain = _fused_run(kw, card, True, given)
+    fused = _fused_run(kw, card, False, given)
+    assert all(lc == (0, 0, 0) for lc in plain[5])
+    norm_pass = int(kw["grad_clip"] is not None and not given)
+    assert fused[5] == [(1, norm_pass, 1)] * 3
+    np.testing.assert_allclose(fused[4], plain[4], rtol=1e-6)
+    if norm_pass:
+        # the clip divides by the kernel's own norm, whose last bits differ
+        # from the multi-tensor one's (a bf16 moment may then round the
+        # other way): the plain sequence clipped by the kernel's norms
+        plain = _fused_run(kw, card, True, norms_in=fused[4])
+    for a, b in zip(_flat_state(fused), _flat_state(plain)):
+        assert torch.equal(a, b)
+
+
+def _flat_state(run):
+    params, mu, nu, shadow = run[:4]
+    return ([params[k] for k in params] + [m.float() for m in mu] + list(nu)
+            + [shadow[k] for k in shadow])
+
+
+def test_fused_update_refuses_a_layout_it_does_not_take(card):
+    """Moments or a shadow in another memory format than their weight, a
+    strided view, a float64 weight: each raises before a launch."""
+    from ddpm_diffusion_model_tpu_torch.training import TrainConfig, make_optimizer
+
+    tx = make_optimizer(TrainConfig(grad_clip=1.0))
+
+    def call(params, opt=None):
+        opt = opt or tx.init(params)
+        tfu.adamw_(tx, params, [torch.ones_like(p) for p in params], opt)
+
+    w = torch.randn(8, 4, 3, 3, device=card).contiguous(memory_format=torch.channels_last)
+    before = Counter(launch_counts)
+    with pytest.raises(ValueError, match="strides"):
+        call([w], opt=tx.init([w.contiguous()]))  # NCHW moments for an NHWC weight
+    with pytest.raises(ValueError, match="not dense"):
+        call([torch.randn(8, 6, device=card)[:, :4]])
+    with pytest.raises(ValueError, match="float64"):
+        call([torch.randn(8, device=card, dtype=torch.float64)])
+    with pytest.raises(ValueError, match="strides"):
+        tfu.ema_lerp_([w.contiguous()], [w], 0.9)  # an NCHW shadow
+    assert _since(before, *UPDATE_OPS) == (0, 0, 0)
+
+
+def test_a_train_update_on_the_card_makes_no_multi_tensor_op(card):
+    """A train step of a small U-Net at grad_accum_steps 1: its update (the
+    ``train.update`` span) makes one ``adamw`` launch, the norm pass its
+    clip needs and one ``ema_lerp`` launch, and no ``_foreach`` op."""
+    from ddpm_diffusion_model_tpu_torch.ops import DiffusionConfig, make_schedule
+    from ddpm_diffusion_model_tpu_torch.training import (TrainConfig, init_train_state,
+                                                         make_train_step)
+
+    torch.manual_seed(3)
+    model = UNetDenoiser(UNetConfig(**SMALL), device=card).to(memory_format=torch.channels_last)
+    sched = make_schedule(DiffusionConfig(T=100, img_size=10), device=card)
+    cfg = TrainConfig(base_lr=1e-3, warmup_steps=None, grad_clip=1.0)
+    state, tx = init_train_state(model, cfg)
+    step = make_train_step(model, sched, tx, cfg)
+    x = torch.rand(8, 10, 10, 3, device=card) * 2 - 1
+    step(state, x)  # first-call set-up
+    torch.cuda.synchronize()
+    before = Counter(launch_counts)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, x)
+        torch.cuda.synchronize()
+    assert _since(before, *UPDATE_OPS) == (1, 1, 1)
+    events = prof.events()
+    (upd,) = [e for e in events if e.name == "train.update"]
+    inside = [e.name for e in events if e.time_range.start >= upd.time_range.start
+              and e.time_range.end <= upd.time_range.end]
+    assert not [n for n in inside if "_foreach" in n], inside
+
+
+class _TwoRankFsdp:
+    """The collectives of rank 0 of a two-rank ``fsdp`` axis, played in one
+    process whose twin rank holds the same gradients and metrics: an
+    all-reduce doubles, the reduce-scatter hands this rank block 0 of twice
+    the buffer, and the all-gather repeats this rank's blocks for the
+    twin's."""
+
+    @staticmethod
+    def all_reduce(t, group=None):
+        t.mul_(2)
+
+    @staticmethod
+    def reduce_scatter_tensor(out, buf, group=None):
+        out.copy_(buf[:out.numel()] * 2)
+
+    @staticmethod
+    def all_gather_into_tensor(out, flat, group=None):
+        out.copy_(flat.repeat(out.numel() // flat.numel()))
+
+
+class _FsdpMesh:
+    mesh_dim_names = ("fsdp",)
+    device_type = "cuda"
+
+    @staticmethod
+    def size(dim):
+        return 2
+
+    @staticmethod
+    def get_coordinate():
+        return [0]
+
+    @staticmethod
+    def get_group(axis):
+        return None
+
+
+def _fsdp_run(dev, cfg_kw, plain, monkeypatch):
+    """Three updates of a small U-Net's state placed as rank 0 of a
+    two-rank FSDP axis (``parallel/sharding.py`` ``finish_update``'s
+    sharded branch, over :class:`_TwoRankFsdp`), by the fused ops or
+    (``plain``) their plain versions; returns (the model's weights, this
+    rank's moment and shadow shards, the norms, launches per update)."""
+    from ddpm_diffusion_model_tpu_torch.parallel import sharding
+    from ddpm_diffusion_model_tpu_torch.training import TrainConfig, init_train_state
+    from ddpm_diffusion_model_tpu_torch.training.step import _finish_update
+
+    monkeypatch.setattr(sharding, "dist", _TwoRankFsdp)
+    monkeypatch.setattr(sharding, "world_size", lambda: 2)
+    torch.manual_seed(5)
+    model = UNetDenoiser(UNetConfig(**SMALL), device=dev).to(memory_format=torch.channels_last)
+    cfg = TrainConfig(**dict(dict(base_lr=1e-2, warmup_steps=None, ema_decay=0.9), **cfg_kw))
+    state, tx = init_train_state(model, cfg)
+    named = dict(model.named_parameters())
+    mesh = _FsdpMesh()
+    specs = {n: sharding._sharded_dim(sharding.fsdp_leaf_spec(p, mesh)) for n, p in named.items()}
+    assert sum(d is not None for d in specs.values()) > len(specs) // 2
+    placement = sharding.StatePlacement(mesh=mesh, fsdp=True, specs=specs,
+                                        shapes={n: p.shape for n, p in named.items()},
+                                        batch=None)
+
+    def cut(n, t):
+        return t if specs[n] is None else sharding._local_shard(t, specs[n], 2, 0)
+
+    names = list(named)
+    state.opt_state["mu"] = [cut(n, m) for n, m in zip(names, state.opt_state["mu"])]
+    state.opt_state["nu"] = [cut(n, v) for n, v in zip(names, state.opt_state["nu"])]
+    state.ema_params = {n: cut(n, e) for n, e in state.ema_params.items()}
+    state.placement = placement
+    norms, launches = [], []
+    with (_plain_path() if plain else contextlib.nullcontext()):
+        for step in range(3):
+            gen = torch.Generator(dev).manual_seed(200 + step)
+            for p in named.values():
+                p.grad = torch.randn(p.shape, generator=gen, device=dev).contiguous(
+                    memory_format=torch.channels_last if p.dim() == 4
+                    else torch.contiguous_format)
+            before = Counter(launch_counts)
+            norm, _ = _finish_update(state, tx, list(named.values()))
+            norms.append(float(norm))
+            launches.append(_since(before, *UPDATE_OPS))
+    torch.cuda.synchronize()
+    return ([p.detach().clone() for p in named.values()],
+            [t.float() for t in state.opt_state["mu"] + state.opt_state["nu"]]
+            + list(state.ema_params.values()), norms, launches)
+
+
+@pytest.mark.parametrize("cfg", ["clip", "noclip_wd", "bf16_mu"])
+def test_fused_update_on_fsdp_shards_matches_the_multi_tensor_sequence(card, cfg, monkeypatch):
+    """The FSDP branch of the placed update on the card: the norm given
+    from the shards, the kernels on the dense copies of this rank's blocks
+    (channels_last conv weights cut along their largest dimension), the
+    copies gathered into the model.  Weights, moment and shadow shards
+    bit-equal to the same branch on the plain sequence, the norms equal;
+    one update and one EMA launch per update and no norm pass."""
+    kw = UPDATE_CFGS[cfg]
+    plain = _fsdp_run(card, kw, True, monkeypatch)
+    fused = _fsdp_run(card, kw, False, monkeypatch)
+    assert plain[3] == [(0, 0, 0)] * 3 and fused[3] == [(1, 0, 1)] * 3
+    assert fused[2] == plain[2]
+    for a, b in zip(fused[0] + fused[1], plain[0] + plain[1]):
+        assert torch.equal(a, b)
